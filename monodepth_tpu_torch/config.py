@@ -7,11 +7,17 @@ package. Some flags were written for the TPU build; here they mean:
   (``ops/cuda/``). On a CPU tensor every kernel wrapper runs its plain
   PyTorch version instead. False selects the plain ``ops.sampling``
   ``grid_sample`` for the warp.
-- ``--pallas_interpret``, ``--nchw_decoder``, ``--spatial_halo`` and
-  ``--steps_per_call``: accepted and ignored (TPU layout, interpret and
-  dispatch controls with no counterpart here).
-- ``--warp_guard`` and ``--warp_auto_swap``: accepted and ignored until
-  the training loop is ported.
+- ``--pallas_interpret``, ``--nchw_decoder`` and ``--spatial_halo``:
+  accepted and ignored (TPU layout and interpret controls with no
+  counterpart here).
+- ``--remat``: accepted and ignored. In JAX it only rematerializes the
+  warp sampler; here the train step keeps the kernel's tap differences
+  (two [B, H, W, 3] f32 tensors per warp), which are small.
+- ``--donate``: accepted and ignored. The train step updates the
+  parameters and the optimizer state in place.
+- ``--steps_per_call``, ``--warp_guard`` and ``--warp_auto_swap``:
+  accepted and ignored until the training loop is ported (several steps
+  per call, and the span guard of the TPU kernel's cost).
 - ``--precision``: bf16 runs convolutions and batch norm in bf16 under
   ``torch.autocast``; the disparity heads, the pose average and the loss
   stack stay f32. Parameters are always f32.
@@ -79,9 +85,9 @@ class Config:
                                          # even when the kernels are off
     pallas_interpret: bool = False       # ignored
     train_gt_metrics: bool = False
-    remat: bool = False
-    donate: bool = False
-    steps_per_call: int = 1              # ignored
+    remat: bool = False                  # ignored
+    donate: bool = False                 # ignored
+    steps_per_call: int = 1              # ignored until the training loop is ported
     cache_frames: bool = False
     spatial_halo: int = 64               # ignored
     eigen_every: int = 0

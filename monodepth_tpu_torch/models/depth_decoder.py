@@ -21,13 +21,20 @@ NUM_CH_DEC = (16, 32, 64, 128, 256)
 
 
 def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
-    """Reflection pad of 1 on H and W of NCHW. A side of length 1 repeats
-    its one element, as numpy's and jax's reflect pad do (torch's refuses
-    it): the deepest level is 1 pixel high at 32-pixel-high inputs."""
-    if min(x.shape[-2:]) > 1:
-        return F.pad(x, (1, 1, 1, 1), mode="reflect")
-    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if x.shape[-1] > 1 else "replicate")
-    return F.pad(x, (0, 0, 1, 1), mode="reflect" if x.shape[-2] > 1 else "replicate")
+    """Reflection pad of 1 on H and W of NCHW, as concatenated slices. A
+    side of length 1 repeats its one element, as numpy's and jax's reflect
+    pad do: the deepest level is 1 pixel high at 32-pixel-high inputs.
+
+    Not `F.pad(mode="reflect")`: its CUDA backward adds with atomics, in an
+    order that changes from run to run, so two bf16 train steps from one
+    state gave encoder gradients 6e-3 apart (rel-L2, H100). The backward
+    of slices and a concatenation is deterministic."""
+    for dim in (2, 3):
+        n = x.shape[dim]
+        lo = x.narrow(dim, 1, 1) if n > 1 else x
+        hi = x.narrow(dim, n - 2, 1) if n > 1 else x
+        x = torch.cat([lo, x, hi], dim)
+    return x
 
 
 class Conv3x3(nn.Module):
@@ -55,7 +62,8 @@ class ConvBlock(nn.Module):
 
 class DepthDecoder(nn.Module):
     """Encoder pyramid (NCHW) -> {scale: sigmoid disparity [B, 1, H/2^s, W/2^s]},
-    float32 (the heads leave any autocast dtype)."""
+    at least float32 (the heads leave any autocast dtype; an f64 model
+    stays f64)."""
 
     def __init__(self, num_ch_enc: Sequence[int],
                  scales: Tuple[int, ...] = (0, 1, 2, 3),
@@ -86,5 +94,7 @@ class DepthDecoder(nn.Module):
             x = self.decoder[2 * n + 1](x)
             if i in self.scales:
                 head = self.decoder[10 + self.scales.index(i)]
-                outputs[i] = torch.sigmoid(head(x).float())
+                y = head(x)
+                outputs[i] = torch.sigmoid(
+                    y.to(torch.promote_types(torch.float32, y.dtype)))
         return outputs

@@ -40,7 +40,7 @@ class PoseDecoder(nn.Module):
         out = torch.relu(self.net[1](out))
         out = torch.relu(self.net[2](out))
         out = self.net[3](out)
-        # global average in f32
-        out = out.float().mean(dim=(2, 3))
+        # global average in at least f32 (an f64 model stays f64)
+        out = out.to(torch.promote_types(torch.float32, out.dtype)).mean(dim=(2, 3))
         out = 0.01 * out.reshape(-1, self.num_frames, 1, 6)
         return out[..., :3], out[..., 3:]

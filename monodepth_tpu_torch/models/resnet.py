@@ -5,7 +5,8 @@ model_layer/depth_encoder.py:14-101): ResNet-{18,34,50,101,152} returning
 the 5-level pyramid [relu1, layer1, layer2, layer3, layer4] with channels
 [64, 64, 128, 256, 512] (x4 from layer1 up for depths >= 50). conv1 takes
 `num_input_images * 3` channels. Inputs in [0, 1] are normalized
-(x - 0.45) / 0.225 inside. BN eps 1e-5, momentum 0.1 (flax's 0.9);
+(x - 0.45) / 0.225 inside. BN eps 1e-5, momentum 0.1 (flax's 0.9), and
+in train mode it keeps flax's biased running variance (`BatchNorm2d`);
 max-pool pads with -inf. Names follow torchvision (conv1, bn1,
 layer1.0.conv2, layer2.0.downsample.0, ...), so torchvision and official
 Monodepth2 encoder checkpoints load as they are.
@@ -18,6 +19,7 @@ from typing import List
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 # stage depths and block type per torchvision resnet variant
 STAGES = {
@@ -37,9 +39,39 @@ def num_ch_enc(num_layers: int) -> np.ndarray:
     return ch
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode update stores the biased batch
+    variance in `running_var`, as flax's `BatchNorm` does:
+    running_var = 0.9·running_var + 0.1·var(ddof=0). `nn.BatchNorm2d`
+    stores the unbiased one (times n/(n-1), n = N·H·W). Both normalize the
+    batch with the biased variance, so only the running statistics differ.
+
+    torch's update runs on copies of the buffers, the variance scaled by
+    n/(n-1), and the result is scaled back into the buffers, which leaves
+    exactly the biased blend. (Batch norm keeps the statistics it was
+    given for its backward, so the buffers themselves are not rescaled in
+    place around the call.) Buffers and state_dict names are those of
+    `nn.BatchNorm2d`."""
+
+    def forward(self, x):
+        n = x.numel() // x.shape[1]
+        if not (self.training and self.track_running_stats) or n < 2:
+            return super().forward(x)
+        unbias = n / (n - 1)
+        mean = self.running_mean.clone()
+        var = self.running_var * unbias
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                           self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            torch.div(var, unbias, out=self.running_var)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
 def _conv_bn(cin: int, cout: int, kernel: int, stride: int = 1):
     conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
-    return conv, nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+    return conv, BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):
@@ -88,6 +120,7 @@ class ResNetEncoder(nn.Module):
             raise ValueError(f"{num_layers} is not a valid resnet depth")
         depths, kind = STAGES[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
+        self.num_layers = num_layers
         self.num_ch_enc = num_ch_enc(num_layers)
         self.conv1, self.bn1 = _conv_bn(3 * num_input_images, 64, 7, 2)
         self.maxpool = nn.MaxPool2d(3, 2, 1)

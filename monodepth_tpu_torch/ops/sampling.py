@@ -15,20 +15,31 @@ import torch
 Tensor = torch.Tensor
 
 
-def grid_sample(image: Tensor, grid: Tensor) -> Tensor:
-    """Bilinear sample `image` [B, H, W, C] at `grid` [B, Ho, Wo, 2]
-    ((x, y) in [-1, 1]), border padding, align_corners=True -> [B, Ho, Wo, C].
+def clip(x: Tensor, lo: float, hi: float) -> Tensor:
+    """`jnp.clip(x, lo, hi)`: the max, then the min, against tensor bounds.
+    The values are those of `torch.clamp`; the gradient is JAX's: 1
+    inside, 0 outside and 0.5 at a tie (x == lo or x == hi), where
+    `torch.clamp` passes 1."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
-    The continuous coordinate is clamped to [0, size-1] and the anchor to
+
+def bilinear_taps(image: Tensor, grid: Tensor):
+    """The 2x2 taps and weights of a bilinear sample of `image`
+    [B, H, W, C] at `grid` [B, Ho, Wo, 2] ((x, y) in [-1, 1]), border
+    padding, align_corners=True: (v00, v01, v10, v11) [B, Ho, Wo, C] and
+    (wx, wy) [B, Ho, Wo, 1].
+
+    The continuous coordinate is clipped to [0, size-1] and the anchor to
     [0, size-2], so a coordinate on the far border becomes (size-2, w=1).
     The int anchors are clamped again after the cast: a NaN coordinate
-    stays memory-safe and gives NaN at its own pixel only. Each blend is
-    a + (b - a)·w, the formula (and rounding) of the CUDA warp kernel,
-    whose plain version this is (`ops.cuda.warp_sample`)."""
+    stays memory-safe and gives NaN at its own pixel only. The weights
+    carry the gradient with respect to the grid; the anchors carry none."""
     B, H, W, C = image.shape
     Ho, Wo = grid.shape[1], grid.shape[2]
-    x = torch.clamp((grid[..., 0] + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
-    y = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
+    x = clip((grid[..., 0] + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
+    y = clip((grid[..., 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
     x0 = torch.clamp(torch.floor(x), 0, W - 2)
     y0 = torch.clamp(torch.floor(y), 0, H - 2)
     wx = (x - x0).to(image.dtype)[..., None]
@@ -42,10 +53,19 @@ def grid_sample(image: Tensor, grid: Tensor) -> Tensor:
         idx = (yi * W + xi).reshape(B, Ho * Wo, 1).expand(B, Ho * Wo, C)
         return flat.gather(1, idx).reshape(B, Ho, Wo, C)
 
-    top = tap(y0i, x0i)
-    top = top + (tap(y0i, x0i + 1) - top) * wx
-    bot = tap(y0i + 1, x0i)
-    bot = bot + (tap(y0i + 1, x0i + 1) - bot) * wx
+    return (tap(y0i, x0i), tap(y0i, x0i + 1), tap(y0i + 1, x0i),
+            tap(y0i + 1, x0i + 1)), (wx, wy)
+
+
+def grid_sample(image: Tensor, grid: Tensor) -> Tensor:
+    """Bilinear sample `image` [B, H, W, C] at `grid` [B, Ho, Wo, 2]
+    ((x, y) in [-1, 1]), border padding, align_corners=True -> [B, Ho, Wo, C]
+    (coordinates as in `bilinear_taps`). Each blend is a + (b - a)·w, the
+    formula (and rounding) of the CUDA warp kernel, whose plain version
+    this is (`ops.cuda.warp_sample`)."""
+    (v00, v01, v10, v11), (wx, wy) = bilinear_taps(image, grid)
+    top = v00 + (v01 - v00) * wx
+    bot = v10 + (v11 - v10) * wx
     return top + (bot - top) * wy
 
 

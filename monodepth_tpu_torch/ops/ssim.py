@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from monodepth_tpu_torch.ops.sampling import clip
+
 Tensor = torch.Tensor
 
 _C1 = 0.01 ** 2
@@ -26,7 +28,9 @@ def _avg_pool3(x: Tensor) -> Tensor:
 
 
 def ssim(image1: Tensor, image2: Tensor) -> Tensor:
-    """Per-pixel SSIM distance clamp((1 - SSIM)/2, 0, 1), NHWC in and out."""
+    """Per-pixel SSIM distance clip((1 - SSIM)/2, 0, 1), NHWC in and out.
+    The distance is 0 exactly wherever two 3x3 patches match, so the clip
+    passes half the gradient there, as `jnp.clip` does."""
     mu_x = _avg_pool3(image1)
     mu_y = _avg_pool3(image2)
 
@@ -36,7 +40,7 @@ def ssim(image1: Tensor, image2: Tensor) -> Tensor:
 
     num = (2.0 * mu_x * mu_y + _C1) * (2.0 * sigma_xy + _C2)
     den = (mu_x * mu_x + mu_y * mu_y + _C1) * (sigma_x + sigma_y + _C2)
-    return torch.clamp((1.0 - num / den) * 0.5, 0.0, 1.0)
+    return clip((1.0 - num / den) * 0.5, 0.0, 1.0)
 
 
 def reprojection_error(prediction: Tensor, target: Tensor) -> Tensor:

@@ -1,14 +1,18 @@
-"""Model construction and the state the steps carry.
+"""Model construction, the optimizer and the state the steps carry.
 
-Counterpart of `monodepth_tpu.training.state` for the forward slice:
-`build_model` makes the seeded `Monodepth` on its device, `TrainState`
-holds it with the global step and the seed that keys the loss noise.
-Adam and StepLR come with the train step.
+Counterpart of `monodepth_tpu.training.state`: `build_model` makes the
+seeded `Monodepth` on its device; `make_optimizer` is Adam under the
+reference's StepLR decay (reference: model_tool/loader.py:106-108,
+model_train.py:81) with the learning rate a function of the global step;
+`TrainState` holds the model, the global step, the seed that keys the
+loss noise and, for training, the optimizer and its schedule. The model
+and the optimizer are updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -51,14 +55,64 @@ def build_model(cfg: Config, device=None) -> Monodepth:
     return model.to(device).eval()
 
 
+Schedule = Callable[[int], float]
+
+
+def step_decay_schedule(base_lr: float, scheduler_step: int,
+                        steps_per_epoch: int, gamma: float = 0.1) -> Schedule:
+    """lr(step) = base · gamma^((step // steps_per_epoch) // scheduler_step):
+    StepLR with the epoch boundary folded into the global step."""
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return base_lr * gamma ** (epoch // scheduler_step)
+
+    return schedule
+
+
+def make_optimizer(cfg: Config, model: Monodepth, steps_per_epoch: int
+                   ) -> Tuple[torch.optim.Adam, Schedule]:
+    """Adam(b1=0.9, b2=0.999, eps=1e-8) over the model's parameters and
+    its StepLR schedule. `TrainState.apply_gradients` sets the learning
+    rate of step k to schedule(k) before the update, as optax counts."""
+    schedule = step_decay_schedule(cfg.learning_rate, cfg.scheduler_step,
+                                   steps_per_epoch)
+    optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0),
+                                 betas=(0.9, 0.999), eps=1e-8)
+    return optimizer, schedule
+
+
 @dataclasses.dataclass
 class TrainState:
-    """The module with its global step and the seed of the loss noise."""
+    """The module with its global step, the seed of the loss noise and,
+    for training, the optimizer and its learning-rate schedule."""
 
     model: Monodepth
     step: int = 0
     seed: int = 42
+    optimizer: Optional[torch.optim.Optimizer] = None
+    schedule: Optional[Schedule] = None
+
+    def apply_gradients(self) -> None:
+        """One optimizer update from the gradients in the parameters'
+        `.grad`, at the learning rate schedule(step); then step += 1."""
+        if self.optimizer is None:
+            raise ValueError("this state has no optimizer: build it with "
+                             "create_state(cfg, model, steps_per_epoch=...)")
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
 
 
-def create_state(cfg: Config, model: Monodepth) -> TrainState:
-    return TrainState(model=model, step=0, seed=cfg.seed)
+def create_state(cfg: Config, model: Monodepth,
+                 steps_per_epoch: int | None = None) -> TrainState:
+    """The state at step 0. With `steps_per_epoch` it also holds Adam and
+    the StepLR schedule (`make_optimizer`); without, it serves the eval
+    and infer steps only."""
+    state = TrainState(model=model, step=0, seed=cfg.seed)
+    if steps_per_epoch is not None:
+        state.optimizer, state.schedule = make_optimizer(cfg, model,
+                                                         steps_per_epoch)
+    return state

@@ -12,70 +12,89 @@ full state_dict, covering `encoder`, `decoder`, `pose_encoder` and
   [upconv_4_0, upconv_4_1, ..., upconv_0_1, dispconv_s for s in scales];
 - pose decoder names map to `pose_decoder.net.{0..3}`.
 float64 arrays stay float64, everything else becomes float32.
+
+`optimizer_state_from_jax` carries optax's Adam state across by the same
+name map, so a JAX run can continue in the port mid-training.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from monodepth_tpu_torch.models.resnet import STAGES
 
 
 def _f(a) -> torch.Tensor:
+    """A copy, f64 kept and anything else f32: the tensor owns writable
+    memory (an optimizer updates its state in place)."""
     a = np.asarray(a)
-    if a.dtype != np.float64:
-        a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    dtype = np.float64 if a.dtype == np.float64 else np.float32
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C"))
 
 
 def _conv(kernel) -> torch.Tensor:
     return _f(np.asarray(kernel).transpose(3, 2, 0, 1))
 
 
+def _at(tree, key):
+    return None if tree is None else tree[key]
+
+
 def _bn(out, key, params, stats) -> None:
     out[f"{key}.weight"] = _f(params["scale"])
     out[f"{key}.bias"] = _f(params["bias"])
+    if stats is None:
+        return
     out[f"{key}.running_mean"] = _f(stats["mean"])
     out[f"{key}.running_var"] = _f(stats["var"])
     out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
 def _encoder(out, prefix: str, params, stats, num_layers: int) -> None:
+    """One ResNet encoder; `stats` None leaves out the BN buffers."""
     depths, kind = STAGES[num_layers]
     out[f"{prefix}.conv1.weight"] = _conv(params["conv1"]["kernel"])
-    _bn(out, f"{prefix}.bn1", params["bn1"], stats["bn1"])
+    _bn(out, f"{prefix}.bn1", params["bn1"], _at(stats, "bn1"))
     n_convs = 2 if kind == "basic" else 3
     for stage, depth in enumerate(depths, start=1):
         for i in range(depth):
             src = params[f"layer{stage}_{i}"]
-            src_stats = stats[f"layer{stage}_{i}"]
+            src_stats = _at(stats, f"layer{stage}_{i}")
             dst = f"{prefix}.layer{stage}.{i}"
             for c in range(1, n_convs + 1):
                 out[f"{dst}.conv{c}.weight"] = _conv(src[f"cb{c}"]["conv"]["kernel"])
                 _bn(out, f"{dst}.bn{c}", src[f"cb{c}"]["bn"],
-                    src_stats[f"cb{c}"]["bn"])
+                    _at(_at(src_stats, f"cb{c}"), "bn"))
             if "downsample" in src:
                 out[f"{dst}.downsample.0.weight"] = _conv(
                     src["downsample"]["conv"]["kernel"])
                 _bn(out, f"{dst}.downsample.1", src["downsample"]["bn"],
-                    src_stats["downsample"]["bn"])
+                    _at(_at(src_stats, "downsample"), "bn"))
 
 
 def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> "OrderedDict[str, torch.Tensor]":
     """JAX `Monodepth` variables -> the port's `Monodepth` state_dict."""
-    params, stats = variables["params"], variables["batch_stats"]
+    return _monodepth(variables["params"], variables["batch_stats"],
+                      cfg.num_layers, cfg.scales)
+
+
+def _monodepth(params, stats: Optional[Mapping], num_layers: int,
+               scales) -> "OrderedDict[str, torch.Tensor]":
+    """A tree shaped like the JAX `Monodepth` params -> tensors under the
+    port's names; `stats` None leaves out the BN buffers."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    _encoder(out, "encoder", params["encoder"], stats["encoder"],
-             cfg.num_layers)
+    _encoder(out, "encoder", params["encoder"], _at(stats, "encoder"),
+             num_layers)
 
     names = []
     for i in range(4, -1, -1):
         names += [f"upconv_{i}_0", f"upconv_{i}_1"]
-    names += [f"dispconv_{s}" for s in cfg.scales]
+    names += [f"dispconv_{s}" for s in scales]
     for idx, name in enumerate(names):
         p = params["decoder"][name]["conv"]
         key = f"decoder.decoder.{idx}.conv"
@@ -85,9 +104,39 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> "OrderedDict[str, 
         out[f"{key}.bias"] = _f(p["bias"])
 
     _encoder(out, "pose_encoder", params["pose_encoder"],
-             stats["pose_encoder"], cfg.num_layers)
+             _at(stats, "pose_encoder"), num_layers)
     for idx, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
         p = params["pose_decoder"][name]
         out[f"pose_decoder.net.{idx}.weight"] = _conv(p["kernel"])
         out[f"pose_decoder.net.{idx}.bias"] = _f(p["bias"])
     return out
+
+
+def optimizer_state_from_jax(opt_state, model: nn.Module) -> dict:
+    """optax Adam state -> a `torch.optim.Adam` state_dict for `model`'s
+    parameters in `model.parameters()` order (the order of
+    `make_optimizer`), for `optimizer.load_state_dict`.
+
+    `opt_state` is that of `optax.adam` (a chain whose first element holds
+    `count`, `mu` and `nu` as trees shaped like the params) or the Adam
+    state itself. `mu` and `nu` map by the names of `state_dict_from_jax`
+    to `exp_avg` and `exp_avg_sq`, `count` to `step`. The param group
+    holds Adam's defaults with b1 0.9, b2 0.999, eps 1e-8; its learning
+    rate is set from the schedule at every update
+    (`TrainState.apply_gradients`)."""
+    adam = opt_state if hasattr(opt_state, "mu") else \
+        next(s for s in opt_state if hasattr(s, "mu"))
+    num_layers, scales = model.encoder.num_layers, model.scales
+    exp_avg = _monodepth(adam.mu, None, num_layers, scales)
+    exp_avg_sq = _monodepth(adam.nu, None, num_layers, scales)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    names = [name for name, _ in model.named_parameters()]
+    missing = set(names) ^ set(exp_avg)
+    if missing:
+        raise ValueError(f"optax state and model differ in {sorted(missing)[:5]}")
+    template = torch.optim.Adam(model.parameters(), betas=(0.9, 0.999),
+                                eps=1e-8).state_dict()
+    return {"state": {i: {"step": step.clone(), "exp_avg": exp_avg[name],
+                          "exp_avg_sq": exp_avg_sq[name]}
+                      for i, name in enumerate(names)},
+            "param_groups": template["param_groups"]}

@@ -4,6 +4,7 @@ torch_import`, compare forwards (eval-mode BN with random positive
 running_var). Tolerances follow tests/test_models.py. Plus the weight
 round trip through `monodepth_tpu_torch.utils.jax_import`."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ from monodepth_tpu.models import PoseDecoder as JPoseDecoder
 from monodepth_tpu.models import ResNetEncoder as JResNetEncoder
 from monodepth_tpu.utils import torch_import
 from monodepth_tpu_torch.config import Config
-from monodepth_tpu_torch.models.depth_decoder import DepthDecoder
+from monodepth_tpu_torch.models.depth_decoder import DepthDecoder, reflect_pad1
 from monodepth_tpu_torch.models.monodepth import Monodepth
 from monodepth_tpu_torch.models.pose_decoder import PoseDecoder
 from monodepth_tpu_torch.models.resnet import ResNetEncoder, num_ch_enc
@@ -142,3 +143,22 @@ def test_weights_round_trip_bit_exact(dtype):
 def test_later_slice_wirings_raise(kw):
     with pytest.raises(NotImplementedError, match="slice 3"):
         Monodepth(**kw)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 1, 4), (1, 2, 3, 1),
+                                   (1, 1, 1, 1), (2, 4, 2, 2)])
+def test_reflect_pad_matches_numpy(rng, shape):
+    """The decoder's pad (slices and a concatenation, deterministic
+    backward) is numpy's reflect pad, sides of length 1 included; its
+    gradient adds each padded cell's cotangent to the cell it copies."""
+    x = torch.from_numpy(rng.standard_normal(shape)).requires_grad_(True)
+    out = reflect_pad1(x)
+    np.testing.assert_array_equal(
+        out.detach().numpy(),
+        np.pad(x.detach().numpy(), ((0, 0), (0, 0), (1, 1), (1, 1)), mode="reflect"))
+    weight = torch.from_numpy(rng.standard_normal(out.shape))
+    (out * weight).sum().backward()
+    theirs = jax.grad(lambda a: (jnp.pad(a, ((0, 0), (0, 0), (1, 1), (1, 1)),
+                                         mode="reflect") * weight.numpy()).sum())(
+        jnp.asarray(x.detach().numpy(), jnp.float32))
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(theirs), rtol=1e-5, atol=1e-5)

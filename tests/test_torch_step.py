@@ -25,7 +25,11 @@ from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.synthetic import make_planar_scenes
 from monodepth_tpu_torch.ops.cuda.warp_sample import warp_sample
 from monodepth_tpu_torch.training.state import build_model, create_state
-from monodepth_tpu_torch.training.step import make_eval_step, make_infer_step
+from monodepth_tpu_torch.training.step import (
+    make_eval_step,
+    make_infer_step,
+    make_train_step,
+)
 from torch_parity import eval_noise, flax_variables, randomize_bn_stats
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -133,7 +137,7 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
     model = build_model(cfg, device="cpu")
-    for make in (make_eval_step, make_infer_step):
+    for make in (make_eval_step, make_infer_step, make_train_step):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make(model, cfg)
     before = warp_sample.launches
@@ -166,8 +170,9 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_port_runs_with_jax_blocked():
-    """Every module of the port imports, and the CPU eval step runs, in a
-    process where importing jax, flax, optax or monodepth_tpu fails."""
+    """Every module of the port imports, and the CPU eval and train steps
+    run, in a process where importing jax, flax, optax or monodepth_tpu
+    fails."""
     code = f"""
 import sys
 for name in {_BLOCKED!r}:
@@ -180,14 +185,16 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.synthetic import make_planar_scenes
 from monodepth_tpu_torch.training.state import build_model, create_state
-from monodepth_tpu_torch.training.step import make_eval_step
-cfg = Config(height=32, width=64, batch=1, precision="f32")
+from monodepth_tpu_torch.training.step import make_eval_step, make_train_step
+cfg = Config(height=32, width=64, batch=2, precision="f32")
 model = build_model(cfg, device="cpu")
-scenes = make_planar_scenes(1, 32, 64)
+scenes = make_planar_scenes(2, 32, 64)
 batch = {{k: scenes[k] for k in ("frames", "jitter", "K", "inv_K")}}
-loss = float(make_eval_step(model, cfg, device="cpu")(create_state(cfg, model), batch)["loss"])
-assert np.isfinite(loss), loss
-print("OK", loss)
+state = create_state(cfg, model, steps_per_epoch=10)
+train = float(make_train_step(model, cfg, device="cpu")(state, batch)["loss"])
+loss = float(make_eval_step(model, cfg, device="cpu")(state, batch)["loss"])
+assert np.isfinite(train) and np.isfinite(loss) and state.step == 1, (train, loss)
+print("OK", train, loss)
 """
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

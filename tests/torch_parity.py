@@ -1,6 +1,7 @@
 """Shared helpers of the tests that hold `monodepth_tpu_torch` against
-`monodepth_tpu`: random batch-norm statistics, the port's state_dict as
-the JAX `Monodepth` variables, and the JAX eval step's tie-break noise."""
+`monodepth_tpu`: random batch-norm statistics, the port's state_dict (or
+its gradients) as the JAX `Monodepth` variables, and the tie-break noise
+of the JAX eval and train steps."""
 
 from __future__ import annotations
 
@@ -48,17 +49,40 @@ def flax_variables(state_dict, cfg):
     }
 
 
+def grads_as_flax(model: torch.nn.Module, cfg):
+    """The port's parameter gradients as the JAX `Monodepth` params tree."""
+    sd = dict(model.state_dict())
+    sd.update({n: p.grad for n, p in model.named_parameters()})
+    return flax_variables(sd, cfg)["params"]
+
+
+def _scale_noise(rng, cfg, dtype):
+    """One split per scale from `rng` (losses/reprojection.py)."""
+    import jax
+
+    shape = (cfg.batch, cfg.height, cfg.width, len(cfg.source_frame_ids))
+    out = {}
+    for s in cfg.scales:
+        rng, sub = jax.random.split(rng)
+        out[s] = torch.from_numpy(
+            1e-5 * np.asarray(jax.random.normal(sub, shape, dtype)))
+    return out
+
+
 def eval_noise(state_rng, step: int, index: int, cfg):
     """The per-scale tie-break noise the JAX eval step draws for batch
     `index` at `step`: fold_in(fold_in(rng, step), index), then one split
     per scale (training/step.py eval_step, losses/reprojection.py)."""
     import jax
 
-    shape = (cfg.batch, cfg.height, cfg.width, len(cfg.source_frame_ids))
     rng = jax.random.fold_in(jax.random.fold_in(state_rng, step), index)
-    out = {}
-    for s in cfg.scales:
-        rng, sub = jax.random.split(rng)
-        out[s] = torch.from_numpy(
-            1e-5 * np.asarray(jax.random.normal(sub, shape, np.float32)))
-    return out
+    return _scale_noise(rng, cfg, np.float32)
+
+
+def train_noise(state_rng, step: int, cfg, dtype=np.float32):
+    """The per-scale tie-break noise the JAX train step draws at `step`:
+    fold_in(rng, step), then one split per scale (training/step.py
+    `_train_step_body`). An f64 `dtype` needs jax's x64 mode on."""
+    import jax
+
+    return _scale_noise(jax.random.fold_in(state_rng, step), cfg, dtype)
