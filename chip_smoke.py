@@ -23,7 +23,17 @@ Phases, each fatal on failure:
    and backward of `WarpSample` beside `F.grid_sample`'s forward and
    backward with respect to the grid. The eager times, host launch cost
    included, are printed beside them;
-4. the main path: `build_model(Config())` (ResNet-18, separate pose,
+4. the warp-gather probes (`ops/cuda/probes.py`, P-A to P-D): each kernel
+   against its plain version at the probe tool's shapes and inputs, at
+   the CPU tests' shapes with out-of-range indices, and at one odd shape:
+   equal exactly, NaN exactly where the plain version has NaN; each
+   kernel's device time as in phase 3 (rotating inputs larger than L2 for
+   P-D), beside its bound from this run's inputs, its plain version's time
+   and the library call's; then the probe tool's path,
+   `kernel_probe.main()`, with the launch counts set to 0 just before and
+   read just after (P-A, P-B, P-C once each, P-D 52 times): A-C equal to
+   the plain versions on the tool's inputs, D's time finite;
+5. the main path: `build_model(Config())` (ResNet-18, separate pose,
    640x192, batch 12, bf16) from a seeded init on `make_planar_scenes`,
    through the public entry points, each path with the launch counts set
    to 0 just before it and read just after:
@@ -36,7 +46,7 @@ Phases, each fatal on failure:
    b. eval and infer, on the trained model: 3 eval steps and 3 infer
       batches (24 K2 launches, no K1, running statistics unchanged); then
       one eval step again with the plain warp, loss rtol 1e-5;
-5. the `kernels` JSON line, then the last line
+6. the `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -343,6 +353,189 @@ def phase_grads_kernel(torch, dev, ws, cfg, card):
             "fwd_bwd_library_ms": device_ms["pair_library"]}
 
 
+PROBES = {  # kernel -> (probe, the Pallas kernel it replaces)
+    "take_along_axis": ("P-A", "tools/pallas_probe.py:35"),
+    "row_gather": ("P-B", "tools/pallas_probe.py:70"),
+    "row_sum": ("P-C", "tools/pallas_probe.py:89"),
+    "slab_gather": ("P-D", "tools/pallas_probe.py:115"),
+}
+
+
+def probe_cases(rng):
+    """{kernel: [(label, numpy inputs, extra args)]}: the probe tool's
+    inputs, the CPU tests' shapes with out-of-range indices, one odd shape."""
+    import numpy as np
+
+    from monodepth_tpu_torch.tools import kernel_probe as kp
+
+    def gather(S, W, lo, hi):
+        return (rng.uniform(-1, 1, (S, W)).astype(np.float32),
+                rng.integers(lo, hi, (S, W)).astype(np.int32))
+
+    def slab(B, H, W):
+        return (rng.uniform(-1, 1, (B, H, W)).astype(np.float32),
+                rng.integers(-W // 8, W + W // 8, (B, H, W)).astype(np.int32))
+
+    src64 = rng.uniform(-1, 1, (64, 256)).astype(np.float32)
+    return {
+        "take_along_axis": [("probe 8x128", kp.inputs_a(), ()),
+                            ("test 8x128", gather(8, 128, -300, 300), ()),
+                            ("odd 3x200", gather(3, 200, -450, 450), ())],
+        "row_gather": [("probe 8x640", kp.inputs_b(640), ())]
+        + [(f"test 8x{W}", gather(8, W, -W // 2, W + W // 2), ()) for W in (128, 256, 640)]
+        + [("odd 5x384", gather(5, 384, -200, 600), ())],
+        "row_sum": [("probe 192x640 lim (50, 61)", kp.inputs_c(), ())]
+        + [(f"test 64x256 lim {lim}", (src64, np.array(lim, np.int32)), ())
+           for lim in ((50, 61), (0, 64), (7, 7), (9, 3))]
+        + [("odd 97x640 lim (0, 97)", (rng.uniform(-1, 1, (97, 640)).astype(np.float32),
+                                       np.array([0, 97], np.int32)), ())],
+        "slab_gather": [("probe 12x192x640 n_y=4", kp.inputs_d(), (4,))]
+        + [(f"test 2x16x256 n_y={n}", slab(2, 16, 256), (n,)) for n in (1, 4, 8)]
+        + [("odd 1x8x128 n_y=8", slab(1, 8, 128), (8,))],
+    }
+
+
+def distinct(torch, keys) -> int:
+    return int(torch.unique(keys).numel())
+
+
+def phase_probes(torch, dev, card):
+    """Phase 4 for the four probe kernels. Returns their `kernels` entries."""
+    import numpy as np
+
+    from monodepth_tpu_torch.ops.cuda import probes
+    from monodepth_tpu_torch.tools import kernel_probe as kp
+
+    rng = np.random.default_rng(4)
+    errs = {}
+    for name, cases in probe_cases(rng).items():
+        kernel, plain = getattr(probes, name), getattr(probes, f"{name}_reference")
+        err = 0.0
+        for label, arrays, extra in cases:
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            ours = kernel(*args, *extra)
+            torch.cuda.synchronize()
+            e = compare(f"{name} {label}", [ours], [plain(*args, *extra)])
+            log(f"{name} vs plain, {label}: max|diff| = {e:.3e}, "
+                f"{int(ours.isnan().sum())} NaN")
+            check(e == 0, f"{name} {label}: max|diff| {e} against the plain version")
+            err = max(err, e)
+        errs[name] = err
+
+    # phase 3's timing at the tool's shapes; the library calls take the
+    # in-range inputs as they are (gather wants int64 indices, made here)
+    tab, ia = (torch.from_numpy(a).to(dev) for a in kp.inputs_a())
+    row, ib = (torch.from_numpy(a).to(dev) for a in kp.inputs_b(640))
+    src, lim = (torch.from_numpy(a).to(dev) for a in kp.inputs_c())
+    lo, hi = (int(v) for v in kp.inputs_c()[1])
+    B, H, W, n_y = 12, 192, 640, 4
+
+    def slab(s, i):
+        return probes.slab_gather(s, i, n_y)
+
+    d_sets = []  # 6 x 11.8 MB, larger than L2
+    for _ in range(6):
+        d_sets.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            rng.uniform(0, 1, (B, H, W)).astype(np.float32),
+            rng.integers(0, W, (B, H, W)).astype(np.int32))))
+    setups = {
+        "take_along_axis": ([(tab, ia, ia.long())], (probes.take_along_axis,
+                            probes.take_along_axis_reference),
+                            lambda t, _, i64: torch.gather(t, 1, i64),
+                            "torch.gather(tab, 1, idx int64)"),
+        "row_gather": ([(row, ib, ib.long())], (probes.row_gather,
+                       probes.row_gather_reference),
+                       lambda r, _, i64: torch.gather(r, 1, i64),
+                       "torch.gather(row, 1, idx int64)"),
+        "row_sum": ([(src, lim)], (probes.row_sum, probes.row_sum_reference),
+                    lambda s, _: s[lo:hi].sum(0),
+                    "src[ymin:ymax].sum(0), bounds on the host"),
+        "slab_gather": (d_sets, (slab, lambda s, i: probes.slab_gather_reference(s, i, n_y)),
+                        None, "none: no single PyTorch call computes it"),
+    }
+    # least bytes: indices read and outputs written once, and each table
+    # element that this run's indices reach (in range) read once
+    n_a, n_b = ia.numel(), ib.numel()
+    in_d = (d_sets[0][1] >= 0) & (d_sets[0][1] < W)
+    slab_of = torch.arange(B * H, device=dev).reshape(B, H, 1) // 8
+    bounds = {
+        "take_along_axis": bound(8 * n_a + 4 * distinct(
+            torch, torch.arange(8, device=dev)[:, None] * 128 + ia), 0),
+        "row_gather": bound(8 * n_b + 4 * distinct(
+            torch, torch.arange(8, device=dev)[:, None] * 640 + ib), 0),
+        "row_sum": bound(8 + 4 * 640 + 4 * 640 * (hi - lo), 640 * (hi - lo)),
+        "slab_gather": bound(8 * B * H * W + 4 * n_y * distinct(
+            torch, (slab_of * W + d_sets[0][1])[in_d]), n_y * B * H * W),
+    }
+    # P-D's cost shape: the same kernel on coalesced indices (idx = l), and
+    # on one input set, which stays in L2 from call to call
+    coalesced = [(s, torch.arange(W, dtype=torch.int32, device=dev).repeat(B, H, 1))
+                 for s, _ in d_sets]
+    d_extra = {"coalesced_idx_ms": graph_ms(slab, coalesced),
+               "l2_warm_ms": graph_ms(slab, d_sets[:1])}
+    out = []
+    for name, (sets, (kernel, plain), library, library_what) in setups.items():
+        extra = d_extra if name == "slab_gather" else {}
+        ms = graph_ms(lambda *a: kernel(*a[:2]), sets)
+        # the plain P-C reads its bounds on the host: no graph, eager time
+        plain_ms = (cuda_ms(lambda *a: plain(*a[:2]), sets, 40) if name == "row_sum"
+                    else graph_ms(lambda *a: plain(*a[:2]), sets))
+        library_ms = graph_ms(library, sets) if library else None
+        eager_ms = cuda_ms(lambda *a: kernel(*a[:2]), sets, 400)
+        bound_ms, bound_by = bounds[name]
+        probe, replaces = PROBES[name]
+        log(json.dumps({f"{name}_us": ms * 1e3, "bound_us": bound_ms * 1e3,
+                        "plain_ms": plain_ms, "library_ms": library_ms,
+                        "library": library_what,
+                        "timing": "device, CUDA graph of 40 calls x 10 replays"
+                                  + ("; plain: eager CUDA events" if name == "row_sum" else ""),
+                        "eager_ms": eager_ms,
+                        "eager_timing": "CUDA events around eager calls (host launch cost included)",
+                        "shape": f"{probe} at the probe tool's shape", **extra,
+                        "card": card}))
+        out.append({"name": name, "route": "cuda",
+                    "source": "monodepth_tpu_torch/csrc/probes.cu",
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, **extra})
+    return out
+
+
+def phase_probe_path(torch, card) -> dict:
+    """Phase 4, the probe tool's path: `kernel_probe.main()` on the card.
+    Returns each probe kernel's launches in it."""
+    import math
+
+    from monodepth_tpu_torch.ops.cuda import probes
+    from monodepth_tpu_torch.tools import kernel_probe as kp
+
+    for name in PROBES:
+        getattr(probes, name).launches = 0
+    results = kp.main([])
+    torch.cuda.synchronize()
+    launches = {name: getattr(probes, name).launches for name in PROBES}
+    expected = {"take_along_axis": 1, "row_gather": 1, "row_sum": 1, "slab_gather": 52}
+    check(launches == expected, f"probe tool launches {launches}, expected {expected}")
+    for key, name, arrays in (("A", "take_along_axis", kp.inputs_a()),
+                              ("B", "row_gather", kp.inputs_b()),
+                              ("C", "row_sum", kp.inputs_c())):
+        check(results[key].ok, f"probe {key} printed WRONG")
+        plain = getattr(probes, f"{name}_reference")(*map(torch.from_numpy, arrays))
+        err = compare(f"probe {key} on the card", [results[key].out.cpu()], [plain])
+        check(err == 0, f"probe {key} on the card: max|diff| {err} against the plain version")
+    d = results["D"]
+    check(d.ok and math.isfinite(d.ms) and d.ms > 0, f"probe D time {d.ms}")
+    check(tuple(d.out.shape) == (12, 192, 640) and bool(d.out.isfinite().all()),
+          "probe D output not finite or of the wrong shape")
+    log(json.dumps({"path": "kernel_probe.main() on the card",
+                    "D_ms_per_channel": d.ms,
+                    "timing": "CUDA events around 50 dependent calls (each with its "
+                              "index add, abs and mean), after 2 warm-up calls",
+                    "launches": launches, "card": card}))
+    return launches
+
+
 def grads_by_module(model):
     """{top-level module: its parameters' gradients, flattened, f64}."""
     import torch
@@ -355,7 +548,7 @@ def grads_by_module(model):
 
 
 def phase_train(torch, ws, cfg, model, state, batches, card):
-    """Phase 4a. Returns K1's launches in the 3 train steps."""
+    """Phase 5a. Returns K1's launches in the 3 train steps."""
     import numpy as np
 
     from monodepth_tpu_torch.training.step import make_train_step
@@ -415,7 +608,7 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
 
 
 def phase_eval(torch, ws, cfg, model, state, batches, card):
-    """Phase 4b, on the model the train steps left in train mode. Returns
+    """Phase 5b, on the model the train steps left in train mode. Returns
     K2's launches in the 3 eval steps and 3 infer batches."""
     import numpy as np
 
@@ -470,7 +663,7 @@ def phase_eval(torch, ws, cfg, model, state, batches, card):
 
 
 def phase_main_path(torch, ws, card):
-    """Phase 4: train, then eval and infer, on one model. Returns the
+    """Phase 5: train, then eval and infer, on one model. Returns the
     launches of each kernel on its path."""
     from monodepth_tpu_torch.config import Config
     from monodepth_tpu_torch.data.synthetic import make_planar_scenes
@@ -568,14 +761,16 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     t = time.perf_counter()
-    for name, output in build_libraries(["warp_sample"]).items():
+    for name, output in build_libraries(["warp_sample", "probes"]).items():
         log(f"nvcc {name}:\n{output.strip()}")
     log(f"kernel build: {time.perf_counter() - t:.1f} s")
 
     dev = torch.device("cuda")
     entries = [phase_kernels(torch, dev, ws, Config(), card),
-               phase_grads_kernel(torch, dev, ws, Config(), card)]
-    launches = phase_main_path(torch, ws, card)
+               phase_grads_kernel(torch, dev, ws, Config(), card),
+               *phase_probes(torch, dev, card)]
+    launches = phase_probe_path(torch, card)
+    launches.update(phase_main_path(torch, ws, card))
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
 

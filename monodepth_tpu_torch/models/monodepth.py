@@ -6,7 +6,7 @@ model_tool/loader.py:70-96, model_tool/processor.py:33-136) for the
 Pose pairs follow the reference order: a past frame f<0 pairs as [f, 0]
 and its transform is inverted at warp time, a future frame f>0 pairs as
 [0, f]. The ``shared`` and ``posecnn`` wirings and ``pose_frames="all"``
-come with slice 3 of the port.
+come with slice 6 of the port (ROADMAP.md).
 
 Public methods take and return NHWC (frames [B, F, H, W, 3], disparities
 [B, h, w, 1]); the submodules run NCHW. state_dict keys: `encoder.*`
@@ -46,14 +46,14 @@ class Monodepth(nn.Module):
         super().__init__()
         if pose_type != "separate":
             raise NotImplementedError(
-                f"pose_type {pose_type!r} comes with slice 3 of the port "
+                f"pose_type {pose_type!r} comes with slice 6 of the port "
                 "(other wirings); this slice has 'separate'")
         if pose_frames != 2:
             raise NotImplementedError(
-                "pose_frames='all' comes with slice 3 of the port")
+                "pose_frames='all' comes with slice 6 of the port")
         if "s" in frame_ids:
             raise NotImplementedError(
-                "the stereo frame comes with slice 3 of the port")
+                "the stereo frame comes with slice 6 of the port")
         self.scales = tuple(scales)
         self.frame_ids = tuple(frame_ids)
         self.pose_frames = pose_frames

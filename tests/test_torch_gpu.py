@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch version,
-and the launches of the eval and train steps. Marked `gpu`; each test skips without a
+"""The port on the card: each CUDA kernel (the warp sampler's and the
+warp-gather probes') against its plain PyTorch version, and the launches
+of the eval and train steps. Marked `gpu`; each test skips without a
 CUDA device. This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
 
@@ -12,6 +13,7 @@ import torch
 
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.synthetic import make_planar_scenes
+from monodepth_tpu_torch.ops.cuda import probes
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
     WarpSample,
     warp_sample,
@@ -185,3 +187,68 @@ def test_train_step_is_deterministic(cuda):
     assert float(a["loss"]) == float(b["loss"])
     for (name, p), q in zip(state.model.named_parameters(), twin.model.parameters()):
         assert torch.equal(p.grad, q.grad), name
+
+
+def _probe_inputs(rng, shape, lo, hi):
+    return (torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)),
+            torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (3, 200)])
+def test_take_along_axis_kernel_matches_plain(cuda, shape):
+    """P-A: wrap in [-L, 0), NaN beyond, exactly as the plain version."""
+    L = shape[1]
+    tab, idx = (t.to(cuda) for t in _probe_inputs(np.random.default_rng(0), shape,
+                                                   -2 * L, 2 * L))
+    before = probes.take_along_axis.launches
+    out = probes.take_along_axis(tab, idx)
+    torch.cuda.synchronize()
+    assert probes.take_along_axis.launches == before + 1
+    plain = probes.take_along_axis_reference(tab, idx)
+    nan = plain.isnan()
+    assert torch.equal(out.isnan(), nan) and bool(nan.any())
+    assert torch.equal(torch.where(nan, 0.0, out), torch.where(nan, 0.0, plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (8, 640), (5, 384)])
+def test_row_gather_kernel_matches_plain(cuda, shape):
+    W = shape[1]
+    row, idx = (t.to(cuda) for t in _probe_inputs(np.random.default_rng(1), shape,
+                                                   -W // 2, W + W // 2))
+    before = probes.row_gather.launches
+    out = probes.row_gather(row, idx)
+    torch.cuda.synchronize()
+    assert probes.row_gather.launches == before + 1
+    assert torch.equal(out, probes.row_gather_reference(row, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,lim", [((192, 640), (50, 61)), ((64, 256), (0, 64)),
+                                       ((64, 256), (7, 7)), ((64, 256), (9, 3)),
+                                       ((97, 640), (0, 97)), ((16, 128), (-5, 40))])
+def test_row_sum_kernel_matches_plain(cuda, shape, lim):
+    """P-C, the bounds on the device; the last case is clamped to [0, H]."""
+    src = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, shape)
+                           .astype(np.float32)).to(cuda)
+    lim = torch.tensor(lim, dtype=torch.int32, device=cuda)
+    before = probes.row_sum.launches
+    out = probes.row_sum(src, lim)
+    torch.cuda.synchronize()
+    assert probes.row_sum.launches == before + 1
+    assert torch.equal(out, probes.row_sum_reference(src, lim))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n_y", [((12, 192, 640), 4), ((2, 16, 256), 1),
+                                       ((2, 16, 256), 8), ((1, 8, 128), 8)])
+def test_slab_gather_kernel_matches_plain(cuda, shape, n_y):
+    W = shape[2]
+    src, idx = (t.to(cuda) for t in _probe_inputs(np.random.default_rng(3), shape,
+                                                   -W // 8, W + W // 8))
+    before = probes.slab_gather.launches
+    out = probes.slab_gather(src, idx, n_y)
+    torch.cuda.synchronize()
+    assert probes.slab_gather.launches == before + 1
+    assert torch.equal(out, probes.slab_gather_reference(src, idx, n_y))
