@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build and run the PyTorch port on one CUDA card, and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py    # every phase below; phase 7 needs 2 or more cards
 
 Run from a checkout of the repository on a host with one NVIDIA Hopper
 card and the CUDA toolkit. It exits non-zero, and prints no result, when
@@ -46,8 +46,37 @@ Phases, each fatal on failure:
    b. eval and infer, on the trained model: 3 eval steps and 3 infer
       batches (24 K2 launches, no K1, running statistics unchanged); then
       one eval step again with the plain warp, loss rtol 1e-5;
-6. the `kernels` JSON line, then the last line
+6. the shifted warp kernel K3 (`warp_sample_shifted`, eval form, and
+   `warp_sample_grads_shifted`, train form):
+   a. against its plain version at the slabs of the {spatial: 2} and
+      {spatial: 4} meshes at 640x192 b12 (224- and 144-row slabs, every
+      shard), on smooth, wild and NaN/inf fields, and one odd shape:
+      max |diff| <= 1e-6, NaN where the plain version has NaN;
+   b. the one-card spatial path: the grids and sources of one headline
+      train step (a copy of the trained state), and for n in {2, 4} every
+      rank's `local_warp` with the halo rows cut from the whole image as
+      the exchange delivers them, in train form (forward, and backward
+      with a fixed dout) and eval form, with the launch counts set to 0
+      just before and read just after (48 launches of each form): the
+      stitched output equals `WarpSample`/`warp_sample` on the whole image
+      (max |diff| 0), the dgrid within 1e-6 · max(scale, 1);
+   c. its device time at the {spatial: 2} slab (as phase 3), beside its
+      bound from this run's taps, its plain version's time, K1/K2's on the
+      whole image and `F.grid_sample` on the slab;
+7. with 2 or more cards: `parallel.run_steps` over NCCL at the headline
+   config, {spatial: 2} on 2 cards and {data: 2, spatial: 2} on 4 (2
+   train steps and an eval step), in f32 and bf16, each rank's K3
+   launches checked (its counts set to 0 just before the steps) and the
+   mesh against the one-card step on the global batch: losses f32 rtol
+   1e-5, bf16 rtol 1e-4 or the one card's own bf16-vs-f32 loss gap of
+   this run where larger; bf16 first-step gradients, module by module,
+   rel-L2 <= the one card's own bf16-vs-f32 gradient rel-L2 of this run
+   (at least 1e-3). With one card it prints that it did not run;
+8. the `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   K3's launches there are those of phase 7's largest mesh in bf16 (rank
+   0) when phase 7 ran, else phase 6b's one-card per-rank emulation;
+   "launches_on" says which.
 """
 
 from __future__ import annotations
@@ -62,7 +91,6 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 MEM_RATE = 3.35e12  # bytes/s, H100 SXM HBM3 (NVIDIA data sheet)
 F32_RATE = 67e12    # flop/s, H100 SXM float32 outside the tensor cores
-MODULES = ("encoder", "decoder", "pose_encoder", "pose_decoder")
 
 
 class SmokeFailure(RuntimeError):
@@ -536,21 +564,11 @@ def phase_probe_path(torch, card) -> dict:
     return launches
 
 
-def grads_by_module(model):
-    """{top-level module: its parameters' gradients, flattened, f64}."""
-    import torch
-
-    out = {}
-    for m in MODULES:
-        out[m] = torch.cat([p.grad.double().flatten() for n, p in model.named_parameters()
-                            if n.split(".")[0] == m])
-    return out
-
-
 def phase_train(torch, ws, cfg, model, state, batches, card):
     """Phase 5a. Returns K1's launches in the 3 train steps."""
     import numpy as np
 
+    from monodepth_tpu_torch.training.state import MODULES, module_grads
     from monodepth_tpu_torch.training.step import make_train_step
 
     train_step = make_train_step(model, cfg)
@@ -585,7 +603,7 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
     finally:
         torch.backends.cudnn.deterministic = False
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    gk, gp = grads_by_module(model), grads_by_module(twin.model)
+    gk, gp = module_grads(model), module_grads(twin.model)
     grad_rel = {m: float((gk[m] - gp[m]).norm() / gp[m].norm()) for m in MODULES}
     log(f"train loss, kernel {loss_k!r} vs plain warp {loss_p!r}: rel {rel:.3e}; "
         f"grad rel-L2 by module {grad_rel}")
@@ -662,6 +680,308 @@ def phase_eval(torch, ws, cfg, model, state, batches, card):
     return launches
 
 
+SHIFTED = {"warp_sample_fwd_shifted": "warp_sample_shifted",
+           "warp_sample_fwd_grads_shifted": "warp_sample_grads_shifted"}
+
+
+def spatial_slab(image, s: int, n: int, halo: int):
+    """Shard s of n's slab of `image` [B, H, W, C] as the halo exchange
+    delivers it: its rows with `halo` rows of each neighbour, zeros beyond
+    the image -> (own rows, rows from the previous, from the next, row0)."""
+    H = image.shape[1]
+    Hl = H // n
+    own = image[:, s * Hl:(s + 1) * Hl]
+    zeros = image.new_zeros((image.shape[0], halo) + tuple(image.shape[2:]))
+    prev = image[:, s * Hl - halo:s * Hl] if s > 0 else zeros
+    nxt = image[:, (s + 1) * Hl:(s + 1) * Hl + halo] if s < n - 1 else zeros
+    return own.contiguous(), prev.contiguous(), nxt.contiguous(), s * Hl - halo
+
+
+def _slab_cases(torch, dev, cfg, rng):
+    """[(label, slab, grid rows, row0, full height)] at the {spatial: n}
+    headline slabs, every shard, smooth, wild and NaN fields."""
+    import numpy as np
+
+    B, H, W, C = cfg.batch, cfg.height, cfg.width, 3
+    img = torch.from_numpy(rng.uniform(size=(B, H, W, C)).astype(np.float32)).to(dev)
+    cases = []
+    for name, field in warp_fields(rng, B, H, W).items():
+        grid = torch.from_numpy(field).to(dev)
+        for n in (2, 4):
+            Hl = H // n
+            halo = min(cfg.spatial_halo, Hl)
+            for s in range(n):
+                own, prev, nxt, row0 = spatial_slab(img, s, n, halo)
+                slab = torch.cat([prev, own, nxt], 1)
+                rows = grid[:, s * Hl:(s + 1) * Hl].contiguous()
+                cases.append((f"{name} n={n} s={s} slab {tuple(slab.shape)}",
+                              slab, rows, row0, H))
+    return cases
+
+
+def touched_bytes(torch, slab, grid, row0: int, full_height: int) -> int:
+    """Bytes of the slab pixels that the taps of `grid` reach (each read
+    once): what this run's data needs of the slab."""
+    B, Himg, W, C = slab.shape
+    x = torch.clamp((grid[..., 0] + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
+    y = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (full_height - 1), 0.0,
+                    full_height - 1)
+    x0 = torch.clamp(torch.floor(x), 0, W - 2).long()
+    y0 = torch.clamp(torch.clamp(torch.floor(y), 0, full_height - 2).long() - row0,
+                     0, Himg - 2)
+    b = torch.arange(B, device=slab.device).reshape(B, 1, 1)
+    taps = torch.cat([((b * Himg + y0 + dy) * W + x0 + dx).flatten()
+                      for dy in (0, 1) for dx in (0, 1)])
+    return int(torch.unique(taps).numel()) * C * 4
+
+
+def phase_shifted_kernels(torch, dev, ws, cfg, card, entries):
+    """Phases 6a and 6c for both forms of K3. Returns their `kernels`
+    entries (launches filled in by phase 6b)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(6)
+    errs = {"warp_sample_fwd_shifted": 0.0, "warp_sample_fwd_grads_shifted": 0.0}
+    odd_slab = torch.from_numpy(rng.uniform(size=(3, 11, 33, 4)).astype(np.float32)).to(dev)
+    odd_grid = torch.from_numpy(warp_fields(rng, 3, 5, 33)["wild"]).to(dev)
+    cases = _slab_cases(torch, dev, cfg, rng) + [
+        ("odd slab 3x11x33x4, grid 3x5x33, row0 7 of 23", odd_slab, odd_grid, 7, 23)]
+    for label, slab, rows, row0, full in cases:
+        nan = 1 if label.startswith("nan") and bool(rows.isnan().any()) else None
+        out = ws.warp_sample_shifted(slab, rows, row0, full)
+        grads = ws.warp_sample_grads_shifted(slab, rows, row0, full)
+        torch.cuda.synchronize()
+        e1 = compare(f"warp_sample_shifted {label}", [out],
+                     [ws.warp_sample_shifted_reference(slab, rows, row0, full)], nan)
+        e2 = compare(f"warp_sample_grads_shifted {label}", grads,
+                     ws.warp_sample_grads_shifted_reference(slab, rows, row0, full), nan)
+        log(f"K3 vs plain, {label}: eval form max|diff| = {e1:.3e}, "
+            f"train form (out, gx, gy) {e2:.3e}")
+        check(max(e1, e2) <= 1e-6, f"K3 {label}: max|diff| {max(e1, e2)} > 1e-6")
+        check(torch.equal(out.nan_to_num(), grads[0].nan_to_num()),
+              f"K3 {label}: the two forms' outputs differ")
+        errs["warp_sample_fwd_shifted"] = max(errs["warp_sample_fwd_shifted"], e1)
+        errs["warp_sample_fwd_grads_shifted"] = max(errs["warp_sample_fwd_grads_shifted"], e2)
+
+    # phase 6c: the {spatial: 2} shard s=1 (rows 96-191, 224-row slab from
+    # row 32) on the smooth field, 4 input sets larger than L2
+    B, H, W, C = cfg.batch, cfg.height, cfg.width, 3
+    n, s = 2, 1
+    Hl, halo = H // n, min(cfg.spatial_halo, H // n)
+    sets = []
+    for im, gr, *_ in timing_sets(torch, rng, dev, B, H, W, C):
+        own, prev, nxt, row0 = spatial_slab(im, s, n, halo)
+        slab = torch.cat([prev, own, nxt], 1)
+        rows = gr[:, s * Hl:(s + 1) * Hl].contiguous()
+        # the same warp for F.grid_sample: y renormalized to the slab's rows
+        y = ((rows[..., 1] + 1) * 0.5 * (H - 1) - row0) / (slab.shape[1] - 1) * 2 - 1
+        sets.append((slab, rows, slab.permute(0, 3, 1, 2).contiguous(),
+                     torch.stack([rows[..., 0], y], -1)))
+    fns = {
+        "warp_sample_fwd_shifted": (
+            lambda sl, gr, *_: ws.warp_sample_shifted(sl, gr, row0, H),
+            lambda sl, gr, *_: ws.warp_sample_shifted_reference(sl, gr, row0, H)),
+        "warp_sample_fwd_grads_shifted": (
+            lambda sl, gr, *_: ws.warp_sample_grads_shifted(sl, gr, row0, H),
+            lambda sl, gr, *_: ws.warp_sample_grads_shifted_reference(sl, gr, row0, H)),
+    }
+    slab_ms = graph_ms(lambda _, __, nchw, g: F.grid_sample(
+        nchw, g, mode="bilinear", padding_mode="border", align_corners=True), sets)
+    npx = B * Hl * W
+    read = touched_bytes(torch, sets[0][0], sets[0][1], row0, H)
+    whole = {k: e for k, e in ((e["name"], e) for e in entries)}
+    out = []
+    for name, (kernel, plain) in fns.items():
+        grads = name == "warp_sample_fwd_grads_shifted"
+        ms, plain_ms = graph_ms(kernel, sets), graph_ms(plain, sets)
+        writes = npx * 4 * C * (3 if grads else 1)
+        bound_ms, bound_by = bound(npx * 8 + writes + read,
+                                   npx * (10 + (13 if grads else 9) * C))
+        slab_bound_ms, _ = bound(npx * 8 + writes + sets[0][0].numel() * 4, 0)
+        twin = "warp_sample_fwd_grads" if grads else "warp_sample_fwd"
+        log(json.dumps({f"{name}_us": ms * 1e3, "bound_us": bound_ms * 1e3,
+                        "bound_whole_slab_us": slab_bound_ms * 1e3,
+                        "slab_bytes_touched": read, "plain_ms": plain_ms,
+                        f"{twin}_whole_image_us": whole[twin]["ms"] * 1e3,
+                        "grid_sample_on_slab_us": slab_ms * 1e3,
+                        "grid_sample_on_slab": "F.grid_sample(border, align_corners="
+                                               "True) on the NCHW slab, grid renormalized "
+                                               "to its rows: the same warp, other inputs",
+                        "timing": "device, CUDA graph of 40 calls x 10 replays",
+                        "shape": f"{{spatial: 2}} shard 1: slab {B}x{Hl + 2 * halo}x{W}x{C}, "
+                                 f"grid {B}x{Hl}x{W}x2, row0 {row0} f32", "card": card}))
+        out.append({"name": name, "route": "cuda",
+                    "source": "monodepth_tpu_torch/csrc/warp_sample.cu",
+                    "replaces": "monodepth_tpu/ops/pallas/warp_sample.py:"
+                                + ("389" if grads else "366"),
+                    "launches": None, "max_abs_err": errs[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    # the eval form's warp is one F.grid_sample on the NCHW slab
+                    # with the grid renormalized to the slab's rows; no single
+                    # call returns the train form's (out, gx, gy)
+                    "library_ms": None if grads else slab_ms,
+                    "library": None if grads else "F.grid_sample on the NCHW slab, "
+                                                  "grid renormalized to its rows"})
+    return out
+
+
+def phase_spatial_path(torch, ws, cfg, state, batch, card) -> dict:
+    """Phase 6b. Returns each K3 form's launches in it."""
+    from monodepth_tpu_torch.training.step import local_warp, make_train_step, slab_holds_taps
+
+    seen = []
+
+    def recorder(src, grid):
+        seen.append((src, grid.detach()))
+        return ws.WarpSample.apply(src, grid)
+
+    twin = copy.deepcopy(state)
+    make_train_step(twin.model, cfg, sampler=recorder)(twin, batch)
+    del twin
+    check(len(seen) == 8, f"recorded {len(seen)} warps in a train step, expected 8")
+    H = cfg.height
+    dout_gen = torch.Generator(device=seen[0][0].device).manual_seed(6)
+    for name in SHIFTED.values():
+        getattr(ws, name).launches = 0
+    worst, checked = 0.0, 0
+    for i, (src, grid) in enumerate(seen):
+        dout = torch.randn(src.shape, generator=dout_gen, device=src.device)
+        g = grid.clone().requires_grad_(True)
+        whole = ws.WarpSample.apply(src, g)
+        whole.backward(dout)
+        whole = whole.detach()
+        whole_eval = ws.warp_sample(src, grid)
+        scale = max(float(g.grad.abs().max()), 1.0)
+        for n in (2, 4):
+            Hl, halo = H // n, min(cfg.spatial_halo, H // n)
+            outs, evals, dgrids = [], [], []
+            for s in range(n):
+                own, prev, nxt, row0 = spatial_slab(src, s, n, halo)
+                rows = grid[:, s * Hl:(s + 1) * Hl].contiguous()
+                check(bool(slab_holds_taps(rows, row0, Hl + 2 * halo, H)),
+                      f"warp {i} n={n} shard {s}: a tap leaves the slab")
+                r = rows.clone().requires_grad_(True)
+                out = local_warp(own, prev, nxt, r, s, H, True)
+                out.backward(dout[:, s * Hl:(s + 1) * Hl])
+                outs.append(out.detach())
+                dgrids.append(r.grad)
+                evals.append(local_warp(own, prev, nxt, rows, s, H, False))
+            err = max(float((torch.cat(outs, 1) - whole).abs().max()),
+                      float((torch.cat(evals, 1) - whole_eval).abs().max()))
+            derr = float((torch.cat(dgrids, 1) - g.grad).abs().max())
+            check(err == 0, f"warp {i} n={n}: stitched K3 vs whole-image K1/K2 "
+                  f"max|diff| {err}")
+            check(derr <= 1e-6 * scale, f"warp {i} n={n}: dgrid {derr} > 1e-6 * {scale}")
+            worst = max(worst, derr / scale)
+            checked += 1
+    torch.cuda.synchronize()
+    launches = {k: getattr(ws, name).launches for k, name in SHIFTED.items()}
+    check(launches == {k: 48 for k in SHIFTED},
+          f"K3 launches {launches} in the one-card spatial path, expected 48 of each")
+    log(json.dumps({"path": "one-card spatial path: local_warp of every rank, "
+                            "n in {2, 4}, the 8 warps of a 640x192 b12 train step",
+                    "warps_x_meshes": checked, "stitched_vs_whole_max_abs": 0.0,
+                    "dgrid_max_rel_to_scale": worst, "launches": launches,
+                    "card": card}))
+    return launches
+
+
+def _run_steps(name: str, data: int, spatial: int, precision: str):
+    """`parallel.run_steps` over NCCL with --reference at the headline
+    config in `precision` -> (each rank's report, rank 0's first-step
+    gradients of the mesh and of one card by module), launches checked."""
+    import torch
+
+    out = os.path.join(HERE, "build", "run_steps", f"{name}_{precision}")
+    cmd = [sys.executable, "-m", "monodepth_tpu_torch.parallel.run_steps",
+           "--data", str(data), "--spatial", str(spatial), "--device", "cuda",
+           "--spawn", "--reference", "--save-grads", "--steps", "2", "--timeout",
+           "300", "--deadline", "540", "--out", out, "--precision", precision]
+    done = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": HERE})
+    check(done.returncode == 0, f"run_steps {name} {precision} failed:\n"
+          f"{done.stderr[-4000:]}")
+    reports = [json.load(open(os.path.join(out, f"rank{r}.json")))
+               for r in range(data * spatial)]
+    for r in reports:
+        # 8 warps in each of 2 train steps and the eval step: each on a
+        # slab (one K3 launch) or in the fallback; K1 and K2 never
+        n = r["launches"]
+        k3 = n["warp_sample_fwd_grads_shifted"] + n["warp_sample_fwd_shifted"]
+        check(k3 == r["slab_warps"] > 0 and k3 + r["fallbacks"] == 24
+              and n["warp_sample_fwd"] == n["warp_sample_fwd_grads"] == 0,
+              f"{name} {precision} rank {r['rank']}: launches {n}, slab warps "
+              f"{r['slab_warps']}, fallbacks {r['fallbacks']}")
+        check(r["losses"] == reports[0]["losses"], f"{name}: ranks' losses differ")
+    return reports, torch.load(os.path.join(out, "grads.pt"))
+
+
+def _rel_l2(a: dict, b: dict) -> dict:
+    """{module: |a - b| / |b|} over flattened gradients."""
+    return {m: float((a[m].double() - b[m].double()).norm() / b[m].double().norm())
+            for m in b}
+
+
+def phase_multi_gpu(torch, card):
+    """Phase 7: `run_steps` over NCCL, one card per rank, when the cards
+    are there. Each mesh runs in f32 (TF32 off: only summation order
+    separates it from one card, loss rtol 1e-5) and in bf16, the headline
+    precision, held to the one card's own bf16-vs-f32 gap of this run:
+    the loss at rtol max(1e-4, that gap), the first-step gradients of
+    each module at rel-L2 max(1e-3, that module's gap). The split batch
+    rounds its bf16 convolutions elsewhere, and bf16 keeps ~3 digits.
+    Returns the K3 launches of rank 0 of the largest mesh in bf16 and
+    what they were counted on, or None when fewer than 2 cards show."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"phase 7 (multi-GPU steps over NCCL) NOT RUN: {count} CUDA device "
+            "visible; NCCL puts one rank on each card, so the collectives need 2 "
+            "or more. They are proven with gloo on the CPU (tests/test_torch_parallel*.py).")
+        return None
+    meshes = [("spatial2", 1, 2)] + ([("data2_spatial2", 2, 2)] if count >= 4 else [])
+    for name, data, spatial in meshes:
+        t = time.perf_counter()
+        runs, grads = {}, {}
+        for p in ("f32", "bf16"):
+            runs[p], grads[p] = _run_steps(name, data, spatial, p)
+        ref = {p: r[0]["reference"] for p, r in runs.items()}
+        floor = max(abs(a - b) / abs(b) for a, b in zip(ref["bf16"]["losses"],
+                                                        ref["f32"]["losses"]))
+        tol = {"f32": 1e-5, "bf16": max(1e-4, floor)}
+        # the precision's own gradient error on one card, and where the
+        # mesh's bf16 gradients lie against the f32 ones
+        one, mesh = ({p: grads[p][k] for p in grads} for k in ("one_device", "mesh"))
+        grad_gap = _rel_l2(one["bf16"], one["f32"])
+        grad_tol = {m: max(1e-3, v) for m, v in grad_gap.items()}
+        log(json.dumps({"path": f"run_steps over NCCL, {name}, 640x192 b12",
+                        "seconds": time.perf_counter() - t,
+                        "one_card_bf16_vs_f32_loss_rel": floor, "loss_rtol": tol,
+                        "one_card_bf16_vs_f32_grad_rel_l2": grad_gap,
+                        "mesh_bf16_vs_f32_grad_rel_l2": _rel_l2(mesh["bf16"], mesh["f32"]),
+                        "mesh_bf16_vs_one_card_f32_grad_rel_l2":
+                            _rel_l2(mesh["bf16"], one["f32"]),
+                        "bf16_grad_rel_l2_limit": grad_tol,
+                        **{p: {"ranks": [{k: r[k] for k in (
+                            "rank", "device_name", "losses", "eval", "launches",
+                            "slab_warps", "fallbacks", "seconds")} for r in runs[p]],
+                            "one_card": {k: ref[p][k] for k in (
+                                "losses", "loss_rel", "grad_rel_l2", "param_max_abs",
+                                "eval_rel")}} for p in runs},
+                        "card": card}))
+        for p in runs:
+            check(max(ref[p]["loss_rel"]) <= tol[p],
+                  f"{name} {p}: losses {runs[p][0]['losses']} vs one card "
+                  f"{ref[p]['losses']}: rel {ref[p]['loss_rel']} > {tol[p]}")
+        over = {m: v for m, v in ref["bf16"]["grad_rel_l2"].items() if v > grad_tol[m]}
+        check(not over, f"{name} bf16: gradient rel-L2 vs one card {over} above the "
+              f"one card's own bf16-vs-f32 gap {grad_tol}")
+    launches = runs["bf16"][0]["launches"]
+    return ({k: launches[k] for k in SHIFTED},
+            f"phase 7: run_steps over NCCL, {name} bf16, rank 0 (2 train steps "
+            "and 1 eval step)")
+
+
 def phase_main_path(torch, ws, card):
     """Phase 5: train, then eval and infer, on one model. Returns the
     launches of each kernel on its path."""
@@ -679,10 +999,12 @@ def phase_main_path(torch, ws, card):
     state = create_state(cfg, model, steps_per_epoch=100)
     log(f"main path setup: {time.perf_counter() - t0:.1f} s "
         f"(scenes + model, {sum(p.numel() for p in model.parameters())} params)")
-    return {"warp_sample_fwd_grads": phase_train(torch, ws, cfg, model, state,
-                                                 batches, card),
-            "warp_sample_fwd": phase_eval(torch, ws, cfg, model, state, batches,
-                                          card)}
+    launches = {"warp_sample_fwd_grads": phase_train(torch, ws, cfg, model, state,
+                                                     batches, card),
+                "warp_sample_fwd": phase_eval(torch, ws, cfg, model, state, batches,
+                                              card)}
+    launches.update(phase_spatial_path(torch, ws, cfg, state, batches[0], card))
+    return launches
 
 
 def _device_total(event) -> float:
@@ -769,10 +1091,19 @@ def main() -> int:
     entries = [phase_kernels(torch, dev, ws, Config(), card),
                phase_grads_kernel(torch, dev, ws, Config(), card),
                *phase_probes(torch, dev, card)]
+    entries += phase_shifted_kernels(torch, dev, ws, Config(), card, entries)
     launches = phase_probe_path(torch, card)
     launches.update(phase_main_path(torch, ws, card))
+    k3_on = ("phase 6b: the one-card per-rank emulation of the spatial path "
+             "(every rank of {spatial: 2} and {spatial: 4}, 8 warps)")
+    mesh = phase_multi_gpu(torch, card)
+    if mesh is not None:
+        k3, k3_on = mesh
+        launches.update(k3)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
+        if entry["name"] in SHIFTED:
+            entry["launches_on"] = k3_on
 
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -7,9 +7,11 @@ package. Some flags were written for the TPU build; here they mean:
   (``ops/cuda/``). On a CPU tensor every kernel wrapper runs its plain
   PyTorch version instead. False selects the plain ``ops.sampling``
   ``grid_sample`` for the warp.
-- ``--pallas_interpret``, ``--nchw_decoder`` and ``--spatial_halo``:
-  accepted and ignored (TPU layout and interpret controls with no
-  counterpart here).
+- ``--pallas_interpret`` and ``--nchw_decoder``: accepted and ignored
+  (TPU layout and interpret controls with no counterpart here).
+- ``--spatial_halo``: the rows each rank of a spatial mesh sends to each
+  neighbour for its warps (capped at its own row count), as in JAX; a
+  warp whose taps leave the slab falls back to an exact gathered warp.
 - ``--remat``: accepted and ignored. In JAX it only rematerializes the
   warp sampler; here the train step keeps the kernel's tap differences
   (two [B, H, W, 3] f32 tensors per warp), which are small.
@@ -89,7 +91,7 @@ class Config:
     donate: bool = False                 # ignored
     steps_per_call: int = 1              # ignored until the training loop is ported
     cache_frames: bool = False
-    spatial_halo: int = 64               # ignored
+    spatial_halo: int = 64               # halo rows of a spatial mesh's warps
     eigen_every: int = 0
 
     @property

@@ -6,20 +6,25 @@ the 5-level pyramid [relu1, layer1, layer2, layer3, layer4] with channels
 [64, 64, 128, 256, 512] (x4 from layer1 up for depths >= 50). conv1 takes
 `num_input_images * 3` channels. Inputs in [0, 1] are normalized
 (x - 0.45) / 0.225 inside. BN eps 1e-5, momentum 0.1 (flax's 0.9), and
-in train mode it keeps flax's biased running variance (`BatchNorm2d`);
-max-pool pads with -inf. Names follow torchvision (conv1, bn1,
+in train mode it keeps flax's biased running variance (`BatchNorm2d`),
+and under `sync_batch_stats` it normalizes with the statistics of the
+global batch of a data-parallel step; max-pool pads with -inf. Names
+follow torchvision (conv1, bn1,
 layer1.0.conv2, layer2.0.downsample.0, ...), so torchvision and official
 Monodepth2 encoder checkpoints load as they are.
 """
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import Iterator, List
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from monodepth_tpu_torch.parallel.mesh import all_reduce_sum
 
 # stage depths and block type per torchvision resnet variant
 STAGES = {
@@ -51,10 +56,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     exactly the biased blend. (Batch norm keeps the statistics it was
     given for its backward, so the buffers themselves are not rescaled in
     place around the call.) Buffers and state_dict names are those of
-    `nn.BatchNorm2d`."""
+    `nn.BatchNorm2d`.
+
+    With a `process_group` (set by `sync_batch_stats`), train mode sums
+    the per-channel count, sum and sum of squares over the group and
+    normalizes with the global batch's mean and biased variance
+    E[x²] - E[x]² (flax's fast variance, floored at 0), as flax does
+    under a data-sharded mesh; the running statistics take the same
+    biased blend. `nn.SyncBatchNorm` would store the unbiased variance."""
+
+    process_group = None
 
     def forward(self, x):
         n = x.numel() // x.shape[1]
+        if self.training and self.track_running_stats \
+                and self.process_group is not None:
+            return self._synced(x)
         if not (self.training and self.track_running_stats) or n < 2:
             return super().forward(x)
         unbias = n / (n - 1)
@@ -67,6 +84,42 @@ class BatchNorm2d(nn.BatchNorm2d):
             torch.div(var, unbias, out=self.running_var)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _synced(self, x):
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dtype)
+        C = x.shape[1]
+        count = torch.full((1,), float(x.numel() // C), dtype=dtype,
+                           device=x.device)
+        stats = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)),
+                                          (xf * xf).sum((0, 2, 3)), count]),
+                               self.process_group)
+        mean = stats[:C] / stats[-1]
+        var = torch.clamp(stats[C:2 * C] / stats[-1] - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = (xf - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            for buf, value in ((self.running_mean, mean), (self.running_var, var)):
+                buf.mul_(1.0 - self.momentum).add_(value.to(buf.dtype),
+                                                   alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
+
+
+@contextlib.contextmanager
+def sync_batch_stats(model: nn.Module, group) -> Iterator[None]:
+    """Within the block, every `BatchNorm2d` of `model` in train mode
+    normalizes with the statistics summed over `group` (a process group;
+    None leaves each rank's own batch)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.process_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.process_group = None
 
 
 def _conv_bn(cin: int, cout: int, kernel: int, stride: int = 1):

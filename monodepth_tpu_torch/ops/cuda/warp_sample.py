@@ -8,11 +8,22 @@ gx = d out / d wx and gy = d out / d wy, [B, H, W, C] each, from which
 `WarpSample` (the train step's sampler) forms the gradient with respect to
 the grid without a second gather.
 
+`warp_sample_shifted(image, grid, row0, full_height)` and
+`warp_sample_grads_shifted(...)` are the same two forms on a row slab
+(K3): `image` [B, Himg, W, C] holds rows row0 .. row0 + Himg - 1 of an
+image of `full_height` rows (own rows plus a halo from the neighbours,
+under a spatial mesh), `grid` [B, Hout, W, 2] carries global coordinates.
+Exact wherever every tap lies in the slab; an anchor outside it reads the
+slab's edge (memory-safe, wrong), and the caller falls back.
+`WarpSampleShifted` is its train-step gradient.
+
 - On a CUDA tensor each launches its entry point of `csrc/warp_sample.cu`
   (built with nvcc for sm_90a at first use, bound with ctypes) on the
   current stream, or raises. They replace the TPU kernel
   `monodepth_tpu/ops/pallas/warp_sample.py:_kernel` in its
-  `with_grads=False` and `with_grads=True` forms. The bound is memory: at
+  `with_grads=False` and `with_grads=True` forms, and K3 replaces it in
+  its shifted launches (`warp_sample_shifted`, `_fwd_shifted`). The
+  bound is memory: at
   640x192, batch 12, C=3 one `warp_sample` moves at least 47.2 MB (grid
   8 B + image 12 B + out 12 B per pixel), 14.1 us at the H100's
   3.35 TB/s, and one `warp_sample_grads` 82.6 MB (gx and gy add 24 B per
@@ -20,8 +31,9 @@ the grid without a second gather.
 - On a CPU tensor each runs its plain version (`warp_sample_reference`,
   `warp_sample_grads_reference`), which rounds exactly as the kernel does.
 
-`warp_sample.launches` and `warp_sample_grads.launches` count kernel
-launches (not plain-version calls).
+`warp_sample.launches`, `warp_sample_grads.launches`,
+`warp_sample_shifted.launches` and `warp_sample_grads_shifted.launches`
+count kernel launches (not plain-version calls).
 """
 
 from __future__ import annotations
@@ -57,6 +69,47 @@ def _check(image: Tensor, grid: Tensor) -> None:
         raise ValueError(f"image on {image.device}, grid on {grid.device}")
 
 
+def _check_shifted(image: Tensor, grid: Tensor, row0: int,
+                   full_height: int) -> None:
+    if image.ndim != 4 or grid.ndim != 4:
+        raise ValueError(f"warp_sample_shifted needs image [B, Himg, W, C] and "
+                         f"grid [B, Hout, W, 2]; got {tuple(image.shape)}, "
+                         f"{tuple(grid.shape)}")
+    B, Himg, W, C = image.shape
+    if grid.shape[0] != B or grid.shape[2] != W or grid.shape[3] != 2:
+        raise ValueError(f"warp_sample_shifted needs grid [B, Hout, W, 2] "
+                         f"matching the slab's batch and width; got image "
+                         f"{tuple(image.shape)}, grid {tuple(grid.shape)}")
+    if Himg < 2 or W < 2 or full_height < 2:
+        raise ValueError(f"warp_sample_shifted needs Himg, W, full_height >= 2; "
+                         f"got {Himg}, {W}, {full_height}")
+    if not isinstance(row0, int):
+        raise TypeError(f"row0 must be a Python int; got {type(row0).__name__}")
+    if image.device != grid.device:
+        raise ValueError(f"image on {image.device}, grid on {grid.device}")
+
+
+def _blend(taps, weights):
+    """out = top + (bot - top)·wy with top = v00 + (v01 - v00)·wx and bot
+    likewise: the kernels' formula and rounding."""
+    (v00, v01, v10, v11), (wx, wy) = taps, weights
+    top = v00 + (v01 - v00) * wx
+    bot = v10 + (v11 - v10) * wx
+    return top + (bot - top) * wy
+
+
+def _blend_grads(taps, weights):
+    """(out, gx, gy) with gx = (1 - wy)·(v01 - v00) + wy·(v11 - v10) and
+    gy = bot - top, in the train-form kernels' order."""
+    (v00, v01, v10, v11), (wx, wy) = taps, weights
+    d0 = v01 - v00
+    d1 = v11 - v10
+    top = v00 + d0 * wx
+    bot = v10 + d1 * wx
+    gy = bot - top
+    return top + gy * wy, (1 - wy) * d0 + wy * d1, gy
+
+
 def warp_sample_reference(image: Tensor, grid: Tensor) -> Tensor:
     """Plain torch version of the kernel: `ops.sampling.grid_sample`, with
     the same coordinates, blend formula and rounding
@@ -72,17 +125,28 @@ def warp_sample_grads_reference(image: Tensor, grid: Tensor):
     gx = (1 - wy)·(v01 - v00) + wy·(v11 - v10) and gy = bot - top, with the
     kernel's formulas and rounding."""
     _check(image, grid)
-    (v00, v01, v10, v11), (wx, wy) = bilinear_taps(image, grid)
-    d0 = v01 - v00
-    d1 = v11 - v10
-    top = v00 + d0 * wx
-    bot = v10 + d1 * wx
-    gy = bot - top
-    return top + gy * wy, (1 - wy) * d0 + wy * d1, gy
+    return _blend_grads(*bilinear_taps(image, grid))
+
+
+def warp_sample_shifted_reference(image: Tensor, grid: Tensor, row0: int,
+                                  full_height: int) -> Tensor:
+    """Plain torch version of the eval-form K3: `bilinear_taps` with the
+    shifted anchor (y over `full_height`, anchor - row0 clamped to the
+    slab), blended as `warp_sample_reference` -> [B, Hout, W, C]."""
+    _check_shifted(image, grid, row0, full_height)
+    return _blend(*bilinear_taps(image, grid, full_height, row0))
+
+
+def warp_sample_grads_shifted_reference(image: Tensor, grid: Tensor, row0: int,
+                                        full_height: int):
+    """Plain torch version of the train-form K3 -> (out, gx, gy), each
+    [B, Hout, W, C], formulas as `warp_sample_grads_reference`."""
+    _check_shifted(image, grid, row0, full_height)
+    return _blend_grads(*bilinear_taps(image, grid, full_height, row0))
 
 
 def _kernel_args(image: Tensor, grid: Tensor, name: str):
-    """Check what a kernel takes; -> (library, B, H, W, C, stream)."""
+    """Check what a kernel takes; -> (library, B, Himg, W, C, stream)."""
     if image.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {image.device}")
     if image.dtype != torch.float32 or grid.dtype != torch.float32:
@@ -137,6 +201,57 @@ def warp_sample_grads(image: Tensor, grid: Tensor):
 warp_sample_grads.launches = 0
 
 
+def warp_sample_shifted(image: Tensor, grid: Tensor, row0: int,
+                        full_height: int) -> Tensor:
+    """K3, eval form: warp the slab `image` [B, Himg, W, C] (global rows
+    row0 .. row0 + Himg - 1 of a `full_height`-row image) by `grid`
+    [B, Hout, W, 2] (global coordinates) -> [B, Hout, W, C]. CUDA tensors
+    go through the kernel, CPU tensors through the plain version."""
+    _check_shifted(image, grid, row0, full_height)
+    if image.device.type == "cpu":
+        return warp_sample_shifted_reference(image, grid, row0, full_height)
+    lib, B, Himg, W, C, stream = _kernel_args(image, grid, "warp_sample_shifted")
+    Hout = grid.shape[1]
+    out = image.new_empty((B, Hout, W, C))
+    with torch.cuda.device(image.device):
+        err = lib.warp_sample_fwd_shifted(
+            image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, Himg, Hout, W,
+            C, row0, full_height, stream)
+    if err != 0:
+        raise RuntimeError(f"warp_sample_fwd_shifted launch failed: CUDA error {err}")
+    warp_sample_shifted.launches += 1
+    return out
+
+
+warp_sample_shifted.launches = 0
+
+
+def warp_sample_grads_shifted(image: Tensor, grid: Tensor, row0: int,
+                              full_height: int):
+    """K3, train form: `warp_sample_shifted` plus the tap differences ->
+    (out, gx, gy), each [B, Hout, W, C]. CUDA tensors go through the
+    kernel, CPU tensors through the plain version."""
+    _check_shifted(image, grid, row0, full_height)
+    if image.device.type == "cpu":
+        return warp_sample_grads_shifted_reference(image, grid, row0, full_height)
+    lib, B, Himg, W, C, stream = _kernel_args(image, grid,
+                                              "warp_sample_grads_shifted")
+    Hout = grid.shape[1]
+    out, gx, gy = (image.new_empty((B, Hout, W, C)) for _ in range(3))
+    with torch.cuda.device(image.device):
+        err = lib.warp_sample_fwd_grads_shifted(
+            image.data_ptr(), grid.data_ptr(), out.data_ptr(), gx.data_ptr(),
+            gy.data_ptr(), B, Himg, Hout, W, C, row0, full_height, stream)
+    if err != 0:
+        raise RuntimeError("warp_sample_fwd_grads_shifted launch failed: "
+                           f"CUDA error {err}")
+    warp_sample_grads_shifted.launches += 1
+    return out, gx, gy
+
+
+warp_sample_grads_shifted.launches = 0
+
+
 def _clip_slope(coord: Tensor, size: int) -> Tensor:
     """d w / d coord of one axis of `bilinear_taps`: 0.5·(size - 1) times
     the `jnp.clip` derivative of the unnormalized coordinate, which is 1
@@ -147,16 +262,19 @@ def _clip_slope(coord: Tensor, size: int) -> Tensor:
     return (inside + 0.5 * tie) * (0.5 * (size - 1))
 
 
-def grid_vjp(grid: Tensor, dout: Tensor, gx: Tensor, gy: Tensor) -> Tensor:
-    """The cotangent of `grid` [B, H, W, 2] from that of the warp's output
-    and its tap differences (all [B, H, W, C]): d wx = sum_c dout·gx,
-    d wy = sum_c dout·gy, chained through the coordinates' clip. The
-    floor anchors pass no gradient. Counterpart of `_grid_vjp`."""
-    H, W = gx.shape[1], gx.shape[2]
+def grid_vjp(grid: Tensor, dout: Tensor, gx: Tensor, gy: Tensor,
+             full_height: int) -> Tensor:
+    """The cotangent of `grid` [B, Ho, W, 2] from that of the warp's output
+    and its tap differences (all [B, Ho, W, C]): d wx = sum_c dout·gx,
+    d wy = sum_c dout·gy, chained through the coordinates' clip. y was
+    normalized over `full_height` rows: Ho for the same-size warp, the
+    full image's height for a slab (K3). The floor anchors pass no
+    gradient. Counterpart of `_grid_vjp`."""
+    W = gx.shape[2]
     dwx = (dout * gx).sum(-1)
     dwy = (dout * gy).sum(-1)
     return torch.stack([dwx * _clip_slope(grid[..., 0], W),
-                        dwy * _clip_slope(grid[..., 1], H)], -1)
+                        dwy * _clip_slope(grid[..., 1], full_height)], -1)
 
 
 class WarpSample(torch.autograd.Function):
@@ -181,15 +299,43 @@ class WarpSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout: Tensor):
         grid, gx, gy = ctx.saved_tensors
-        return None, grid_vjp(grid, dout, gx, gy), None
+        return None, grid_vjp(grid, dout, gx, gy, gx.shape[1]), None
+
+
+class WarpSampleShifted(torch.autograd.Function):
+    """`warp_sample_shifted` with a gradient with respect to the grid:
+    `WarpSampleShifted.apply(slab, grid, row0, full_height)`, the train
+    step's warp of a row slab under a spatial mesh.
+
+    The forward runs `warp_sample_grads_shifted` (K3 on CUDA tensors, the
+    plain version on CPU tensors); the backward is `grid_vjp` over
+    `full_height` rows, as JAX's `_bwd_shifted`. The slab gets no gradient
+    (None; JAX returns zeros shaped like the slab), by the same contract
+    as `WarpSample`."""
+
+    @staticmethod
+    def forward(ctx, image: Tensor, grid: Tensor, row0: int, full_height: int):
+        out, gx, gy = warp_sample_grads_shifted(image, grid, row0, full_height)
+        ctx.save_for_backward(grid, gx, gy)
+        ctx.full_height = full_height
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: Tensor):
+        grid, gx, gy = ctx.saved_tensors
+        return None, grid_vjp(grid, dout, gx, gy, ctx.full_height), None, None
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("warp_sample")
-    ints = [ctypes.c_int] * 4  # B, H, W, C
-    for fn, n_ptrs in ((lib.warp_sample_fwd, 3), (lib.warp_sample_fwd_grads, 5)):
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + ints + [ctypes.c_void_p]
+    # (B, H, W, C); the shifted forms (B, Himg, Hout, W, C, row0, full_height)
+    for fn, n_ptrs, n_ints in ((lib.warp_sample_fwd, 3, 4),
+                               (lib.warp_sample_fwd_grads, 5, 4),
+                               (lib.warp_sample_fwd_shifted, 3, 7),
+                               (lib.warp_sample_fwd_grads_shifted, 5, 7)):
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 

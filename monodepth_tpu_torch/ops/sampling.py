@@ -25,7 +25,8 @@ def clip(x: Tensor, lo: float, hi: float) -> Tensor:
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
-def bilinear_taps(image: Tensor, grid: Tensor):
+def bilinear_taps(image: Tensor, grid: Tensor, full_height: int | None = None,
+                  row0: int = 0):
     """The 2x2 taps and weights of a bilinear sample of `image`
     [B, H, W, C] at `grid` [B, Ho, Wo, 2] ((x, y) in [-1, 1]), border
     padding, align_corners=True: (v00, v01, v10, v11) [B, Ho, Wo, C] and
@@ -35,17 +36,26 @@ def bilinear_taps(image: Tensor, grid: Tensor):
     [0, size-2], so a coordinate on the far border becomes (size-2, w=1).
     The int anchors are clamped again after the cast: a NaN coordinate
     stays memory-safe and gives NaN at its own pixel only. The weights
-    carry the gradient with respect to the grid; the anchors carry none."""
+    carry the gradient with respect to the grid; the anchors carry none.
+
+    With `full_height`, `image` is a slab of rows of a taller image: y is
+    normalized over `full_height` rows, and the row anchor, clamped to
+    [0, full_height - 2], is shifted by -`row0` (the global row of the
+    slab's first row) and clamped to [0, H - 2]. A tap outside the slab
+    then reads the slab's edge row."""
     B, H, W, C = image.shape
     Ho, Wo = grid.shape[1], grid.shape[2]
+    Hf = H if full_height is None else full_height
     x = clip((grid[..., 0] + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
-    y = clip((grid[..., 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
+    y = clip((grid[..., 1] + 1.0) * 0.5 * (Hf - 1), 0.0, Hf - 1)
     x0 = torch.clamp(torch.floor(x), 0, W - 2)
-    y0 = torch.clamp(torch.floor(y), 0, H - 2)
+    y0 = torch.clamp(torch.floor(y), 0, Hf - 2)
     wx = (x - x0).to(image.dtype)[..., None]
     wy = (y - y0).to(image.dtype)[..., None]
     x0i = torch.clamp(x0.to(torch.int64), 0, W - 2)
-    y0i = torch.clamp(y0.to(torch.int64), 0, H - 2)
+    y0i = torch.clamp(y0.to(torch.int64), 0, Hf - 2)
+    if full_height is not None:
+        y0i = torch.clamp(y0i - row0, 0, H - 2)
 
     flat = image.reshape(B, H * W, C)
 

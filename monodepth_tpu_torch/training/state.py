@@ -12,12 +12,14 @@ and the optimizer are updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.models.monodepth import Monodepth
+
+MODULES = ("encoder", "decoder", "pose_encoder", "pose_decoder")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,6 +55,14 @@ def build_model(cfg: Config, device=None) -> Monodepth:
                       pose_frames=cfg.pose_frames)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     return model.to(device).eval()
+
+
+def module_grads(model: Monodepth) -> Dict[str, torch.Tensor]:
+    """{top-level module (`MODULES`): its parameters' gradients, flattened,
+    f64}, for comparing the gradients of two steps module by module."""
+    return {m: torch.cat([p.grad.detach().double().flatten()
+                          for n, p in model.named_parameters()
+                          if n.split(".")[0] == m]) for m in MODULES}
 
 
 Schedule = Callable[[int], float]

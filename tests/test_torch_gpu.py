@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel (the warp sampler's and the
-warp-gather probes') against its plain PyTorch version, and the launches
+"""The port on the card: each CUDA kernel (the warp sampler's, its
+shifted slab form K3, and the warp-gather probes') against its plain
+PyTorch version, and the launches
 of the eval and train steps. Marked `gpu`; each test skips without a
 CUDA device. This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
@@ -16,10 +17,15 @@ from monodepth_tpu_torch.data.synthetic import make_planar_scenes
 from monodepth_tpu_torch.ops.cuda import probes
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
     WarpSample,
+    WarpSampleShifted,
     warp_sample,
     warp_sample_grads,
     warp_sample_grads_reference,
+    warp_sample_grads_shifted,
+    warp_sample_grads_shifted_reference,
     warp_sample_reference,
+    warp_sample_shifted,
+    warp_sample_shifted_reference,
 )
 from monodepth_tpu_torch.training.state import build_model, create_state
 from monodepth_tpu_torch.training.step import make_eval_step, make_train_step
@@ -252,3 +258,88 @@ def test_slab_gather_kernel_matches_plain(cuda, shape, n_y):
     torch.cuda.synchronize()
     assert probes.slab_gather.launches == before + 1
     assert torch.equal(out, probes.slab_gather_reference(src, idx, n_y))
+
+
+def _slab(img, s, n, halo):
+    """Shard s of n's slab of img [B, H, W, C], zeros beyond the image ->
+    (slab, row0)."""
+    B, H, W, C = img.shape
+    Hl = H // n
+    lo = s * Hl - halo
+    slab = img.new_zeros((B, Hl + 2 * halo, W, C))
+    src_lo, src_hi = max(lo, 0), min(lo + Hl + 2 * halo, H)
+    slab[:, src_lo - lo:src_hi - lo] = img[:, src_lo:src_hi]
+    return slab, lo
+
+
+SHIFTED_CASES = [("smooth", (12, 192, 640, 3), 2, 64), ("smooth", (12, 192, 640, 3), 4, 48),
+                 ("wild", (12, 192, 640, 3), 2, 64), ("nan", (12, 192, 640, 3), 2, 64),
+                 ("wild", (3, 14, 33, 4), 2, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape,n,halo", SHIFTED_CASES)
+def test_shifted_kernels_match_plain(cuda, kind, shape, n, halo):
+    """K3, both forms, every shard: against the plain version (max |diff|
+    <= 1e-6, NaN where it has NaN), and the eval form's values equal the
+    train form's."""
+    rng = np.random.default_rng(0)
+    B, H, W, C = shape
+    img = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(cuda)
+    grid = torch.from_numpy(_field(rng, B, H, W, kind)).to(cuda)
+    Hl = H // n
+    for s in range(n):
+        slab, row0 = _slab(img, s, n, halo)
+        rows = grid[:, s * Hl:(s + 1) * Hl].contiguous()
+        before = warp_sample_shifted.launches, warp_sample_grads_shifted.launches
+        out = warp_sample_shifted(slab, rows, row0, H)
+        ours = warp_sample_grads_shifted(slab, rows, row0, H)
+        torch.cuda.synchronize()
+        assert (warp_sample_shifted.launches, warp_sample_grads_shifted.launches) == \
+            (before[0] + 1, before[1] + 1)
+        plains = [warp_sample_shifted_reference(slab, rows, row0, H),
+                  *warp_sample_grads_shifted_reference(slab, rows, row0, H)]
+        for name, a, b in zip(("eval", "out", "gx", "gy"), (out, *ours), plains):
+            assert torch.equal(a.isnan(), b.isnan()), (s, name)
+            assert float((a - b).nan_to_num().abs().max()) <= 1e-6, (s, name)
+        assert torch.allclose(out, ours[0], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_shifted_kernels_stitch_to_the_whole_warp(cuda):
+    """On a smooth field every tap lies in its slab: the shards of K3
+    stitch to K1/K2 on the whole image bit for bit, and
+    `WarpSampleShifted`'s dgrid to `WarpSample`'s."""
+    rng = np.random.default_rng(2)
+    B, H, W, C, n, halo = 12, 192, 640, 3, 2, 64
+    img = torch.from_numpy(rng.uniform(size=(B, H, W, C)).astype(np.float32)).to(cuda)
+    grid = torch.from_numpy(_field(rng, B, H, W, "smooth")).to(cuda)
+    dout = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32)).to(cuda)
+    g = grid.clone().requires_grad_(True)
+    whole = WarpSample.apply(img, g)
+    whole.backward(dout)
+    Hl = H // n
+    outs, evals, dgrids = [], [], []
+    for s in range(n):
+        slab, row0 = _slab(img, s, n, halo)
+        rows = grid[:, s * Hl:(s + 1) * Hl].contiguous().requires_grad_(True)
+        out = WarpSampleShifted.apply(slab, rows, row0, H)
+        out.backward(dout[:, s * Hl:(s + 1) * Hl])
+        outs.append(out.detach())
+        dgrids.append(rows.grad)
+        evals.append(warp_sample_shifted(slab, rows.detach(), row0, H))
+    assert torch.equal(torch.cat(outs, 1), whole.detach())
+    assert torch.equal(torch.cat(evals, 1), warp_sample(img, grid))
+    scale = max(float(g.grad.abs().max()), 1.0)
+    assert float((torch.cat(dgrids, 1) - g.grad).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+def test_shifted_kernel_rejects_what_it_cannot_take(cuda):
+    slab = torch.zeros((1, 12, 16, 3), device=cuda)
+    grid = torch.zeros((1, 8, 16, 2), device=cuda)
+    for fn in (warp_sample_shifted, warp_sample_grads_shifted):
+        with pytest.raises(TypeError):
+            fn(slab.double(), grid.double(), -2, 16)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(slab.transpose(1, 2).contiguous().transpose(1, 2), grid, -2, 16)
