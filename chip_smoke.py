@@ -13,16 +13,24 @@ Phases, each fatal on failure:
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, on smooth, wild and NaN/inf fields and
    one odd shape: max |diff| <= 1e-6, NaN exactly where the plain
-   version has NaN. For the train form (K1) also the gradient with
-   respect to the grid through `WarpSample`, kernel forward against plain
-   forward: max |diff| <= 1e-6 · max(scale, 1);
+   version has NaN. For the train form (K1) also ragged widths and
+   pointers off 16 bytes (max |diff| 0), and
+   the gradient with respect to the grid through `WarpSample`, kernels
+   against plain versions: max |diff| <= 1e-6 · max(scale, 1). Its
+   backward (K1-bwd, `grid_vjp`) against `grid_vjp_reference` on K1's
+   outputs at the main path's shape, at the {spatial: 2} shard (Hout 96
+   of 192) and one odd shape, on pointers off 16 bytes and an expanded
+   cotangent: max |diff| <= 1e-6 · max(scale, 1), NaN where the plain
+   version has NaN;
 3. each kernel's device time (CUDA events around replays of a CUDA
    graph of 40 calls, warmed, rotating inputs larger than L2), beside
    its bound, its plain version's time and, where one PyTorch call
-   computes the same function, that call's time; for K1 also the forward
-   and backward of `WarpSample` beside `F.grid_sample`'s forward and
-   backward with respect to the grid. The eager times, host launch cost
-   included, are printed beside them;
+   computes the same function, that call's time; for K1 also the
+   forward and backward of `WarpSample` beside `F.grid_sample`'s forward
+   and backward with respect to the grid; for K1-bwd
+   `aten.grid_sampler_2d_backward` (grid gradient only) as the library
+   call. The eager times, host launch cost included, are printed beside
+   them;
 4. the warp-gather probes (`ops/cuda/probes.py`, P-A to P-D): each kernel
    against its plain version at the probe tool's shapes and inputs, at
    the CPU tests' shapes with out-of-range indices, and at one odd shape:
@@ -38,11 +46,13 @@ Phases, each fatal on failure:
    through the public entry points, each path with the launch counts set
    to 0 just before it and read just after:
    a. train: `create_state(..., steps_per_epoch=100)`, 3 train steps
-      (losses finite, every parameter changed, 24 K1 launches, no K2);
-      then one step from a deep copy of the model and optimizer with the
-      plain warp forward and the same noise (loss rtol 1e-5, per-module
-      gradient rel-L2 <= 1e-3, cuDNN deterministic for that pair); the
-      step's time and profile;
+      (losses finite, every parameter changed, 24 K1 and 24 K1-bwd
+      launches, no K2); then one step from a deep copy of the model and
+      optimizer with the plain warp (forward and backward) and the same
+      noise (loss rtol 1e-5, per-module gradient rel-L2 <= 1e-3, cuDNN
+      deterministic for that pair); the step's time and profile (K1 and
+      K1-bwd device ms, kernels per step, device ms under
+      `WarpSampleBackward`);
    b. eval and infer, on the trained model: 3 eval steps and 3 infer
       batches (24 K2 launches, no K1, running statistics unchanged); then
       one eval step again with the plain warp, loss rtol 1e-5;
@@ -57,16 +67,18 @@ Phases, each fatal on failure:
       rank's `local_warp` with the halo rows cut from the whole image as
       the exchange delivers them, in train form (forward, and backward
       with a fixed dout) and eval form, with the launch counts set to 0
-      just before and read just after (48 launches of each form): the
-      stitched output equals `WarpSample`/`warp_sample` on the whole image
-      (max |diff| 0), the dgrid within 1e-6 · max(scale, 1);
+      just before and read just after (48 launches of each form, and 56
+      of K1-bwd: the shards' 48 and the whole image's 8): the stitched
+      output equals `WarpSample`/`warp_sample` on the whole image (max
+      |diff| 0), the dgrid within 1e-6 · max(scale, 1);
    c. its device time at the {spatial: 2} slab (as phase 3), beside its
       bound from this run's taps, its plain version's time, K1/K2's on the
       whole image and `F.grid_sample` on the slab;
 7. with 2 or more cards: `parallel.run_steps` over NCCL at the headline
    config, {spatial: 2} on 2 cards and {data: 2, spatial: 2} on 4 (2
-   train steps and an eval step), in f32 and bf16, each rank's K3
-   launches checked (its counts set to 0 just before the steps) and the
+   train steps and an eval step), in f32 and bf16, each rank's K3 and
+   K1-bwd launches checked (its counts set to 0 just before the steps:
+   one K1-bwd per train-form K3, 16 without fallbacks) and the
    mesh against the one-card step on the global batch: losses f32 rtol
    1e-5, bf16 rtol 1e-4 or the one card's own bf16-vs-f32 loss gap of
    this run where larger; bf16 first-step gradients, module by module,
@@ -292,6 +304,124 @@ def phase_kernels(torch, dev, ws, cfg, card):
             "bound_by": bound_by, "library_ms": device_ms["library"]}
 
 
+def offset_copy(torch, t):
+    """A contiguous copy of `t` that starts 4 bytes past a 16-byte
+    boundary, so the kernels take their one-pixel-at-a-time path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    check(out.data_ptr() % 16 != 0 and out.is_contiguous(), "offset copy is aligned")
+    return out
+
+
+def pixel_group_cases(torch, dev, ws, rng) -> float:
+    """Phase 2 for K1's pixel groups: ragged widths (groups across rows, a
+    ragged last group) and pointers off 16 bytes, each against the plain
+    version: max |diff| 0."""
+    import numpy as np
+
+    worst = 0.0
+    for B, H, W in ((12, 192, 33), (12, 192, 130), (3, 17, 33)):
+        img = torch.from_numpy(rng.uniform(size=(B, H, W, 3)).astype(np.float32)).to(dev)
+        for name, field in warp_fields(rng, B, H, W).items():
+            grid = torch.from_numpy(field).to(dev)
+            err = compare(f"warp_sample_grads {name} {B}x{H}x{W}",
+                          ws.warp_sample_grads(img, grid),
+                          ws.warp_sample_grads_reference(img, grid))
+            log(f"warp_sample_grads vs plain, {name} {B}x{H}x{W}x3 "
+                f"({B * H * W % 2} px in the last group of 2): max|diff| = {err:.3e}")
+            check(err == 0, f"warp_sample_grads {name} {B}x{H}x{W}: max|diff| {err}")
+            worst = max(worst, err)
+    img = torch.from_numpy(rng.uniform(size=(12, 192, 640, 3)).astype(np.float32)).to(dev)
+    grid = torch.from_numpy(warp_fields(rng, 12, 192, 640)["wild"]).to(dev)
+    plain = ws.warp_sample_grads_reference(img, grid)
+    out = ws.warp_sample_grads(offset_copy(torch, img), offset_copy(torch, grid))
+    err = compare("warp_sample_grads off 16 bytes", out, plain)
+    log("warp_sample_grads vs plain, wild 12x192x640x3, image and grid 4 bytes "
+        f"off 16: max|diff| = {err:.3e}")
+    check(err == 0, f"warp_sample_grads off 16 bytes: max|diff| {err}")
+    return max(worst, err)
+
+
+def phase_grid_vjp_kernel(torch, dev, ws, cfg, card):
+    """Phases 2 and 3 for the train form's backward (K1-bwd, `grid_vjp`).
+    Returns its `kernels` entry."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    B, H, W, C = cfg.batch, cfg.height, cfg.width, 3
+    img = torch.from_numpy(rng.uniform(size=(B, H, W, C)).astype(np.float32)).to(dev)
+    fields = warp_fields(rng, B, H, W)
+    n, s = 2, 1
+    Hl, halo = H // n, min(cfg.spatial_halo, H // n)
+    own, prev, nxt, row0 = spatial_slab(img, s, n, halo)
+    slab = torch.cat([prev, own, nxt], 1)
+    cases = []  # (label, grid, gx, gy, full height)
+    for name, field in fields.items():
+        grid = torch.from_numpy(field).to(dev)
+        cases.append((f"{name} {B}x{H}x{W}x{C}", grid, *ws.warp_sample_grads(img, grid)[1:], H))
+        rows = grid[:, s * Hl:(s + 1) * Hl].contiguous()
+        cases.append((f"{name} {{spatial: 2}} shard 1, Hout {Hl} of {H}", rows,
+                      *ws.warp_sample_grads_shifted(slab, rows, row0, H)[1:], H))
+    oi = torch.from_numpy(rng.uniform(size=(3, 7, 33, 4)).astype(np.float32)).to(dev)
+    og = torch.from_numpy(fields["wild"][:3, :7, :33].copy()).to(dev)
+    cases.append(("odd 3x7x33x4", og, *ws.warp_sample_grads(oi, og)[1:], 7))
+    max_err = 0.0
+    for label, grid, gx, gy, full in cases:
+        dout = torch.from_numpy(rng.standard_normal(tuple(gx.shape)).astype(np.float32)).to(dev)
+        plain = ws.grid_vjp_reference(grid, dout, gx, gy, full)
+        runs = {"": (ws.grid_vjp(grid, dout, gx, gy, full), plain)}  # (kernel, plain)
+        if label.startswith("wild") and "shard" not in label:
+            wide = dout[:, :1, :1].expand_as(dout)
+            runs[", every input 4 bytes off 16"] = (ws.grid_vjp(
+                *(offset_copy(torch, t) for t in (grid, dout, gx, gy)), full), plain)
+            runs[", expanded dout"] = (ws.grid_vjp(grid, wide, gx, gy, full),
+                                       ws.grid_vjp_reference(grid, wide.contiguous(), gx, gy, full))
+        torch.cuda.synchronize()
+        nan = int(plain.isnan().any(-1).sum())
+        scale = max(float(plain.nan_to_num().abs().max()), 1.0)
+        for suffix, (out, want) in runs.items():
+            err = compare(f"grid_vjp {label}{suffix}", [out], [want])
+            log(f"grid_vjp vs plain, {label}{suffix}: max|diff| = {err:.3e} "
+                f"(scale {scale:.3e}, {nan} NaN pixels)")
+            check(err <= 1e-6 * scale, f"grid_vjp {label}{suffix}: max|diff| {err} "
+                  f"> 1e-6 * {scale}")
+            max_err = max(max_err, err)
+        if label.startswith("nan") and "shard" not in label:
+            check(nan >= 1, f"grid_vjp {label}: no NaN where the coordinate is NaN")
+
+    # phase 3: the inputs the main path gives it, from K1 on the timing sets
+    sets = []
+    for im, gr, nchw, do, do_nchw in timing_sets(torch, rng, dev, B, H, W, C):
+        _, gx, gy = ws.warp_sample_grads(im, gr)
+        sets.append((gr, do, gx, gy, nchw, do_nchw))
+    fns = {"kernel": lambda gr, do, gx, gy, *_: ws.grid_vjp(gr, do, gx, gy, H),
+           "plain": lambda gr, do, gx, gy, *_: ws.grid_vjp_reference(gr, do, gx, gy, H),
+           "library": lambda gr, _, __, ___, nchw, do_nchw:
+               torch.ops.aten.grid_sampler_2d_backward(
+                   do_nchw, nchw, gr, 0, 1, True, [False, True])[1]}
+    device_ms = {k: graph_ms(fn, sets) for k, fn in fns.items()}
+    npx = B * H * W
+    # grid, dout, gx, gy read once, dgrid written once; 2C products, 2(C-1)
+    # sums and ~12 for the two slopes and products
+    bound_ms, bound_by = bound(npx * (8 + 3 * 4 * C + 8), npx * (4 * C + 12))
+    log(json.dumps({"warp_sample_bwd_grid_us": device_ms["kernel"] * 1e3,
+                    "bound_us": bound_ms * 1e3, "plain_ms": device_ms["plain"],
+                    "library_ms": device_ms["library"],
+                    "library": "torch.ops.aten.grid_sampler_2d_backward(bilinear, "
+                               "border, align_corners, output_mask [False, True]), "
+                               "NCHW: the grid gradient alone, re-gathering the taps",
+                    "timing": "device, CUDA graph of 40 calls x 10 replays",
+                    "shape": f"{B}x{H}x{W}x{C} f32", "card": card}))
+    return {"name": "warp_sample_bwd_grid", "route": "cuda",
+            "source": "monodepth_tpu_torch/csrc/warp_sample.cu",
+            "replaces": "monodepth_tpu/ops/pallas/warp_sample.py:340 (_grid_vjp, jnp)",
+            "launches": None, "max_abs_err": max_err, "ms": device_ms["kernel"],
+            "plain_ms": device_ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": device_ms["library"],
+            "library": "torch.ops.aten.grid_sampler_2d_backward, grid gradient only"}
+
+
 def phase_grads_kernel(torch, dev, ws, cfg, card):
     """Phases 2 and 3 for the train-form warp kernel (K1) and the
     gradient of `WarpSample`. Returns its `kernels` entry."""
@@ -332,6 +462,7 @@ def phase_grads_kernel(torch, dev, ws, cfg, card):
                   ws.warp_sample_grads_reference(oi, og))
     log(f"warp_sample_grads vs plain, odd 3x7x33x4: max|diff| = {err:.3e}")
     check(err <= 1e-6, f"warp_sample_grads odd shape: max|diff| {err} > 1e-6")
+    max_err = max(max_err, err, pixel_group_cases(torch, dev, ws, rng))
 
     # phase 3
     sets = timing_sets(torch, rng, dev, B, H, W, C)
@@ -565,7 +696,8 @@ def phase_probe_path(torch, card) -> dict:
 
 
 def phase_train(torch, ws, cfg, model, state, batches, card):
-    """Phase 5a. Returns K1's launches in the 3 train steps."""
+    """Phase 5a. Returns the launches of K1 and K1-bwd in the 3 train
+    steps."""
     import numpy as np
 
     from monodepth_tpu_torch.training.state import MODULES, module_grads
@@ -575,10 +707,14 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
     before = [p.detach().clone() for p in model.parameters()]
     ws.warp_sample.launches = 0
     ws.warp_sample_grads.launches = 0
+    ws.grid_vjp.launches = 0
     metrics = [train_step(state, b) for b in batches]
     torch.cuda.synchronize()
     k1, k2 = ws.warp_sample_grads.launches, ws.warp_sample.launches
+    bwd = ws.grid_vjp.launches
     check(k1 == 24, f"warp_sample_grads launched {k1} times in 3 train steps, "
+          "expected 24 (8 per step)")
+    check(bwd == 24, f"grid_vjp launched {bwd} times in 3 train steps, "
           "expected 24 (8 per step)")
     check(k2 == 0, f"warp_sample launched {k2} times in 3 train steps, expected 0")
     losses = [float(m["loss"]) for m in metrics]
@@ -589,9 +725,11 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
           "parameter tensors unchanged by 3 train steps")
     log(f"train losses {losses}, warp_span {[float(m['warp_span']) for m in metrics]}, "
         f"{changed} of {len(before)} parameter tensors changed, "
-        f"warp_sample_grads launches {k1}, warp_sample launches {k2}")
+        f"warp_sample_grads launches {k1}, grid_vjp launches {bwd}, "
+        f"warp_sample launches {k2}")
 
-    # the next step twice from the same state: kernel warp, plain forward
+    # the next step twice from the same state: kernel warp, plain warp
+    # (forward and backward)
     torch.backends.cudnn.deterministic = True
     try:
         twin = copy.deepcopy(state)
@@ -619,10 +757,10 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
                     "card": card}))
     log(json.dumps({"train_step_profile": profile_steps(
         torch, lambda i: train_step(state, batches[i % 3]),
-        {"k1": "warp_sample_fwd_grads_kernel"},
+        {"k1": "warp_sample_fwd_grads_kernel", "k1_bwd": "warp_sample_bwd_grid_kernel"},
         ("train_step/forward", "train_step/backward", "train_step/optimizer",
          "WarpSampleBackward")), "card": card}))
-    return k1
+    return {"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd}
 
 
 def phase_eval(torch, ws, cfg, model, state, batches, card):
@@ -844,6 +982,7 @@ def phase_spatial_path(torch, ws, cfg, state, batch, card) -> dict:
     dout_gen = torch.Generator(device=seen[0][0].device).manual_seed(6)
     for name in SHIFTED.values():
         getattr(ws, name).launches = 0
+    ws.grid_vjp.launches = 0
     worst, checked = 0.0, 0
     for i, (src, grid) in enumerate(seen):
         dout = torch.randn(src.shape, generator=dout_gen, device=src.device)
@@ -877,13 +1016,16 @@ def phase_spatial_path(torch, ws, cfg, state, batch, card) -> dict:
             checked += 1
     torch.cuda.synchronize()
     launches = {k: getattr(ws, name).launches for k, name in SHIFTED.items()}
+    bwd = ws.grid_vjp.launches
     check(launches == {k: 48 for k in SHIFTED},
           f"K3 launches {launches} in the one-card spatial path, expected 48 of each")
+    check(bwd == 56, f"grid_vjp launched {bwd} times in the one-card spatial path, "
+          "expected 56 (48 shards' WarpSampleShifted + 8 whole-image WarpSample)")
     log(json.dumps({"path": "one-card spatial path: local_warp of every rank, "
                             "n in {2, 4}, the 8 warps of a 640x192 b12 train step",
                     "warps_x_meshes": checked, "stitched_vs_whole_max_abs": 0.0,
                     "dgrid_max_rel_to_scale": worst, "launches": launches,
-                    "card": card}))
+                    "grid_vjp_launches": bwd, "card": card}))
     return launches
 
 
@@ -909,8 +1051,11 @@ def _run_steps(name: str, data: int, spatial: int, precision: str):
         # slab (one K3 launch) or in the fallback; K1 and K2 never
         n = r["launches"]
         k3 = n["warp_sample_fwd_grads_shifted"] + n["warp_sample_fwd_shifted"]
+        # each train-form slab warp's backward is one K1-bwd launch: 16 in
+        # the 2 train steps when none falls back
         check(k3 == r["slab_warps"] > 0 and k3 + r["fallbacks"] == 24
-              and n["warp_sample_fwd"] == n["warp_sample_fwd_grads"] == 0,
+              and n["warp_sample_fwd"] == n["warp_sample_fwd_grads"] == 0
+              and n["warp_sample_bwd_grid"] == n["warp_sample_fwd_grads_shifted"],
               f"{name} {precision} rank {r['rank']}: launches {n}, slab warps "
               f"{r['slab_warps']}, fallbacks {r['fallbacks']}")
         check(r["losses"] == reports[0]["losses"], f"{name}: ranks' losses differ")
@@ -999,10 +1144,8 @@ def phase_main_path(torch, ws, card):
     state = create_state(cfg, model, steps_per_epoch=100)
     log(f"main path setup: {time.perf_counter() - t0:.1f} s "
         f"(scenes + model, {sum(p.numel() for p in model.parameters())} params)")
-    launches = {"warp_sample_fwd_grads": phase_train(torch, ws, cfg, model, state,
-                                                     batches, card),
-                "warp_sample_fwd": phase_eval(torch, ws, cfg, model, state, batches,
-                                              card)}
+    launches = phase_train(torch, ws, cfg, model, state, batches, card)
+    launches["warp_sample_fwd"] = phase_eval(torch, ws, cfg, model, state, batches, card)
     launches.update(phase_spatial_path(torch, ws, cfg, state, batches[0], card))
     return launches
 
@@ -1090,6 +1233,7 @@ def main() -> int:
     dev = torch.device("cuda")
     entries = [phase_kernels(torch, dev, ws, Config(), card),
                phase_grads_kernel(torch, dev, ws, Config(), card),
+               phase_grid_vjp_kernel(torch, dev, ws, Config(), card),
                *phase_probes(torch, dev, card)]
     entries += phase_shifted_kernels(torch, dev, ws, Config(), card, entries)
     launches = phase_probe_path(torch, card)

@@ -5,8 +5,9 @@ align_corners=True on NHWC float32 tensors, the same-size form the view
 synthesis uses (grid [B, H, W, 2] over an image [B, H, W, C]).
 `warp_sample_grads(image, grid)` also returns the tap differences
 gx = d out / d wx and gy = d out / d wy, [B, H, W, C] each, from which
-`WarpSample` (the train step's sampler) forms the gradient with respect to
-the grid without a second gather.
+`grid_vjp` forms the gradient with respect to the grid without a second
+gather. `WarpSample` (the train step's sampler) is the pair as a
+`torch.autograd.Function`.
 
 `warp_sample_shifted(image, grid, row0, full_height)` and
 `warp_sample_grads_shifted(...)` are the same two forms on a row slab
@@ -22,18 +23,21 @@ slab's edge (memory-safe, wrong), and the caller falls back.
   current stream, or raises. They replace the TPU kernel
   `monodepth_tpu/ops/pallas/warp_sample.py:_kernel` in its
   `with_grads=False` and `with_grads=True` forms, and K3 replaces it in
-  its shifted launches (`warp_sample_shifted`, `_fwd_shifted`). The
-  bound is memory: at
-  640x192, batch 12, C=3 one `warp_sample` moves at least 47.2 MB (grid
-  8 B + image 12 B + out 12 B per pixel), 14.1 us at the H100's
-  3.35 TB/s, and one `warp_sample_grads` 82.6 MB (gx and gy add 24 B per
-  pixel), 24.6 us. The design note is in the CUDA source.
+  its shifted launches (`warp_sample_shifted`, `_fwd_shifted`).
+  `grid_vjp` (K1-bwd) computes JAX's `_grid_vjp`, which is jnp there. The
+  bound is memory: at 640x192, batch 12, C=3 one `warp_sample` moves at
+  least 47.2 MB (grid 8 B + image 12 B + out 12 B per pixel), 14.1 us at
+  the H100's 3.35 TB/s, one `warp_sample_grads` 82.6 MB (gx and gy add
+  24 B per pixel), 24.6 us, and one `grid_vjp` 76.7 MB (grid, dout, gx,
+  gy in, dgrid out: 52 B per pixel), 22.9 us. The design note is in the
+  CUDA source.
 - On a CPU tensor each runs its plain version (`warp_sample_reference`,
-  `warp_sample_grads_reference`), which rounds exactly as the kernel does.
+  `warp_sample_grads_reference`, `grid_vjp_reference`, ...), which rounds
+  exactly as the kernel does.
 
 `warp_sample.launches`, `warp_sample_grads.launches`,
-`warp_sample_shifted.launches` and `warp_sample_grads_shifted.launches`
-count kernel launches (not plain-version calls).
+`warp_sample_shifted.launches`, `warp_sample_grads_shifted.launches` and
+`grid_vjp.launches` count kernel launches (not plain-version calls).
 """
 
 from __future__ import annotations
@@ -158,6 +162,12 @@ def _kernel_args(image: Tensor, grid: Tensor, name: str):
     return (_kernel_library(), *image.shape, stream)
 
 
+def _aligned(*tensors: Tensor) -> int:
+    """1 if every tensor starts on 16 bytes (the kernels' vector loads and
+    stores), else 0 (they go one pixel at a time)."""
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def warp_sample(image: Tensor, grid: Tensor) -> Tensor:
     """Warp `image` [B, H, W, C] by `grid` [B, H, W, 2] -> [B, H, W, C].
     CUDA tensors go through the kernel, CPU tensors through the plain
@@ -191,7 +201,7 @@ def warp_sample_grads(image: Tensor, grid: Tensor):
     with torch.cuda.device(image.device):
         err = lib.warp_sample_fwd_grads(
             image.data_ptr(), grid.data_ptr(), out.data_ptr(), gx.data_ptr(),
-            gy.data_ptr(), B, H, W, C, stream)
+            gy.data_ptr(), B, H, W, C, _aligned(grid, out, gx, gy), stream)
     if err != 0:
         raise RuntimeError(f"warp_sample_fwd_grads launch failed: CUDA error {err}")
     warp_sample_grads.launches += 1
@@ -241,7 +251,8 @@ def warp_sample_grads_shifted(image: Tensor, grid: Tensor, row0: int,
     with torch.cuda.device(image.device):
         err = lib.warp_sample_fwd_grads_shifted(
             image.data_ptr(), grid.data_ptr(), out.data_ptr(), gx.data_ptr(),
-            gy.data_ptr(), B, Himg, Hout, W, C, row0, full_height, stream)
+            gy.data_ptr(), B, Himg, Hout, W, C, row0, full_height,
+            _aligned(grid, out, gx, gy), stream)
     if err != 0:
         raise RuntimeError("warp_sample_fwd_grads_shifted launch failed: "
                            f"CUDA error {err}")
@@ -262,44 +273,101 @@ def _clip_slope(coord: Tensor, size: int) -> Tensor:
     return (inside + 0.5 * tie) * (0.5 * (size - 1))
 
 
+def _check_vjp(grid: Tensor, dout: Tensor, gx: Tensor, gy: Tensor,
+               full_height: int) -> None:
+    if gx.ndim != 4 or dout.shape != gx.shape or gy.shape != gx.shape:
+        raise ValueError(f"grid_vjp needs dout, gx, gy [B, Ho, W, C] alike; got "
+                         f"{tuple(dout.shape)}, {tuple(gx.shape)}, {tuple(gy.shape)}")
+    if grid.shape != gx.shape[:3] + (2,):
+        raise ValueError(f"grid_vjp needs grid [B, Ho, W, 2] matching gx "
+                         f"{tuple(gx.shape)}; got {tuple(grid.shape)}")
+    if gx.shape[2] < 2 or full_height < 2:
+        raise ValueError(f"grid_vjp needs W, full_height >= 2; got "
+                         f"{gx.shape[2]}, {full_height}")
+    dtypes = {t.dtype for t in (grid, dout, gx, gy)}
+    if len(dtypes) != 1 or not grid.dtype.is_floating_point:
+        raise TypeError(f"grid_vjp needs one floating dtype; got {sorted(map(str, dtypes))}")
+    if len({t.device for t in (grid, dout, gx, gy)}) != 1:
+        raise ValueError("grid_vjp needs its tensors on one device")
+
+
+def grid_vjp_reference(grid: Tensor, dout: Tensor, gx: Tensor, gy: Tensor,
+                       full_height: int) -> Tensor:
+    """Plain torch version of K1-bwd: the cotangent of `grid`
+    [B, Ho, W, 2] from that of the warp's output and its tap differences
+    (all [B, Ho, W, C]): d wx = sum_c dout·gx, d wy = sum_c dout·gy (summed
+    left to right over the channels, as the kernel does), chained through
+    the coordinates' clip. y was normalized over `full_height` rows: Ho for
+    the same-size warp, the full image's height for a slab (K3). The floor
+    anchors pass no gradient. Any float dtype. Counterpart of `_grid_vjp`."""
+    _check_vjp(grid, dout, gx, gy, full_height)
+    dwx, dwy = dout[..., 0] * gx[..., 0], dout[..., 0] * gy[..., 0]
+    for c in range(1, gx.shape[3]):
+        dwx = dwx + dout[..., c] * gx[..., c]
+        dwy = dwy + dout[..., c] * gy[..., c]
+    return torch.stack([dwx * _clip_slope(grid[..., 0], gx.shape[2]),
+                        dwy * _clip_slope(grid[..., 1], full_height)], -1)
+
+
 def grid_vjp(grid: Tensor, dout: Tensor, gx: Tensor, gy: Tensor,
              full_height: int) -> Tensor:
-    """The cotangent of `grid` [B, Ho, W, 2] from that of the warp's output
-    and its tap differences (all [B, Ho, W, C]): d wx = sum_c dout·gx,
-    d wy = sum_c dout·gy, chained through the coordinates' clip. y was
-    normalized over `full_height` rows: Ho for the same-size warp, the
-    full image's height for a slab (K3). The floor anchors pass no
-    gradient. Counterpart of `_grid_vjp`."""
-    W = gx.shape[2]
-    dwx = (dout * gx).sum(-1)
-    dwy = (dout * gy).sum(-1)
-    return torch.stack([dwx * _clip_slope(grid[..., 0], W),
-                        dwy * _clip_slope(grid[..., 1], full_height)], -1)
+    """The gradient with respect to the grid (`grid_vjp_reference`), as
+    one kernel (K1-bwd): CUDA tensors go through it (float32), CPU tensors
+    through the plain version. `dout` may be strided or expanded, as
+    autograd hands it."""
+    dout = dout.contiguous()
+    if grid.device.type == "cpu":
+        return grid_vjp_reference(grid, dout, gx, gy, full_height)
+    _check_vjp(grid, dout, gx, gy, full_height)
+    if grid.device.type != "cuda":
+        raise ValueError(f"grid_vjp runs on cuda or cpu, not {grid.device}")
+    if grid.dtype != torch.float32:
+        raise TypeError(f"grid_vjp kernel takes float32; got {grid.dtype}")
+    if not all(t.is_contiguous() for t in (grid, gx, gy)):
+        raise ValueError("grid_vjp kernel takes contiguous tensors")
+    B, Ho, W, C = gx.shape
+    dgrid = torch.empty_like(grid)
+    with torch.cuda.device(grid.device):
+        err = _kernel_library().warp_sample_bwd_grid(
+            grid.data_ptr(), dout.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+            dgrid.data_ptr(), B, Ho, W, C, full_height,
+            _aligned(grid, dout, gx, gy, dgrid),
+            torch.cuda.current_stream(grid.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"warp_sample_bwd_grid launch failed: CUDA error {err}")
+    grid_vjp.launches += 1
+    return dgrid
+
+
+grid_vjp.launches = 0
 
 
 class WarpSample(torch.autograd.Function):
     """`warp_sample` with a gradient with respect to the grid: the train
     step's sampler, `WarpSample.apply(image, grid)`.
 
-    The forward runs `warp_sample_grads` (the kernel on CUDA tensors; with
-    `plain=True` the plain version on any device) and keeps grid, gx and
-    gy; the backward is `grid_vjp` in torch ops. The image gets no
-    gradient (None): JAX's `warp_sample` returns a zero image cotangent by
-    contract, which is exact in the train step, where the sampled images
-    are data with no dependence on parameters. Do not use it where the
-    sampled image itself needs a gradient."""
+    The forward runs `warp_sample_grads` and keeps grid, gx and gy; the
+    backward is `grid_vjp`: the kernels on CUDA tensors, the plain
+    versions on CPU tensors, and with `plain=True` the plain versions of
+    both on any device. The image gets no gradient (None): JAX's
+    `warp_sample` returns a zero image cotangent by contract, which is
+    exact in the train step, where the sampled images are data with no
+    dependence on parameters. Do not use it where the sampled image itself
+    needs a gradient."""
 
     @staticmethod
     def forward(ctx, image: Tensor, grid: Tensor, plain: bool = False):
         fn = warp_sample_grads_reference if plain else warp_sample_grads
         out, gx, gy = fn(image, grid)
         ctx.save_for_backward(grid, gx, gy)
+        ctx.plain = plain
         return out
 
     @staticmethod
     def backward(ctx, dout: Tensor):
         grid, gx, gy = ctx.saved_tensors
-        return None, grid_vjp(grid, dout, gx, gy, gx.shape[1]), None
+        fn = grid_vjp_reference if ctx.plain else grid_vjp
+        return None, fn(grid, dout, gx, gy, gx.shape[1]), None
 
 
 class WarpSampleShifted(torch.autograd.Function):
@@ -308,8 +376,8 @@ class WarpSampleShifted(torch.autograd.Function):
     step's warp of a row slab under a spatial mesh.
 
     The forward runs `warp_sample_grads_shifted` (K3 on CUDA tensors, the
-    plain version on CPU tensors); the backward is `grid_vjp` over
-    `full_height` rows, as JAX's `_bwd_shifted`. The slab gets no gradient
+    plain version on CPU tensors); the backward is `grid_vjp` (K1-bwd)
+    over `full_height` rows, as JAX's `_bwd_shifted`. The slab gets no gradient
     (None; JAX returns zeros shaped like the slab), by the same contract
     as `WarpSample`."""
 
@@ -329,11 +397,14 @@ class WarpSampleShifted(torch.autograd.Function):
 @functools.lru_cache(maxsize=None)
 def _kernel_library() -> ctypes.CDLL:
     lib = load_library("warp_sample")
-    # (B, H, W, C); the shifted forms (B, Himg, Hout, W, C, row0, full_height)
+    # (B, H, W, C), the train form + aligned; the shifted forms (B, Himg,
+    # Hout, W, C, row0, full_height), the train form + aligned; the
+    # backward (B, Hout, W, C, full_height, aligned)
     for fn, n_ptrs, n_ints in ((lib.warp_sample_fwd, 3, 4),
-                               (lib.warp_sample_fwd_grads, 5, 4),
+                               (lib.warp_sample_fwd_grads, 5, 5),
                                (lib.warp_sample_fwd_shifted, 3, 7),
-                               (lib.warp_sample_fwd_grads_shifted, 5, 7)):
+                               (lib.warp_sample_fwd_grads_shifted, 5, 8),
+                               (lib.warp_sample_bwd_grid, 5, 6)):
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int

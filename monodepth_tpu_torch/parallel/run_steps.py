@@ -15,8 +15,9 @@ broadcasts rank 0's state, and runs `--steps` train steps and one eval
 step on `make_planar_scenes` batches (ground truth depth drawn from the
 seed), each rank on its piece (`shard_batch`). It writes OUT/rank<r>.json:
 the losses, the last train and the eval metrics, per-module gradient
-norms after the first step, a parameter checksum, the launches of K1, K2
-and both forms of K3, and the spatial warps on slabs and fallbacks.
+norms after the first step, a parameter checksum, the launches of K1, K2,
+both forms of K3 and K1-bwd (`grid_vjp`), and the spatial warps on slabs
+and fallbacks.
 
 With `--reference`, rank 0 then runs the same steps on one device on the
 global batches, and the eval step from the mesh's trained state, and adds
@@ -72,7 +73,8 @@ STEPS_PER_EPOCH = 100  # the learning rate stays at its first value
 KERNELS = {"warp_sample_fwd": ws.warp_sample,
            "warp_sample_fwd_grads": ws.warp_sample_grads,
            "warp_sample_fwd_shifted": ws.warp_sample_shifted,
-           "warp_sample_fwd_grads_shifted": ws.warp_sample_grads_shifted}
+           "warp_sample_fwd_grads_shifted": ws.warp_sample_grads_shifted,
+           "warp_sample_bwd_grid": ws.grid_vjp}
 
 
 def free_port() -> int:

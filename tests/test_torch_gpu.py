@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel (the warp sampler's, its
-shifted slab form K3, and the warp-gather probes') against its plain
-PyTorch version, and the launches
-of the eval and train steps. Marked `gpu`; each test skips without a
+backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
+against its plain PyTorch version, and the launches of the eval and train
+steps. Marked `gpu`; each test skips without a
 CUDA device. This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
 
@@ -18,6 +18,8 @@ from monodepth_tpu_torch.ops.cuda import probes
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
     WarpSample,
     WarpSampleShifted,
+    grid_vjp,
+    grid_vjp_reference,
     warp_sample,
     warp_sample_grads,
     warp_sample_grads_reference,
@@ -98,8 +100,8 @@ def test_warp_grads_kernel_matches_plain(cuda, kind, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["smooth", "wild"])
 def test_warp_dgrid_kernel_matches_plain_forward(cuda, kind):
-    """`WarpSample` through K1 against the same backward from the plain
-    forward: max |diff| <= 1e-6 · max(scale, 1)."""
+    """`WarpSample` through K1 and K1-bwd against the plain forward and
+    backward: max |diff| <= 1e-6 · max(scale, 1)."""
     rng = np.random.default_rng(1)
     B, H, W, C = 12, 192, 640, 3
     img = torch.from_numpy(rng.uniform(size=(B, H, W, C)).astype(np.float32)).to(cuda)
@@ -112,6 +114,103 @@ def test_warp_dgrid_kernel_matches_plain_forward(cuda, kind):
         dgrids.append(grid.grad)
     scale = max(float(dgrids[1].abs().max()), 1.0)
     assert float((dgrids[0] - dgrids[1]).abs().max()) <= 1e-6 * scale
+
+
+def _offset(t):
+    """A contiguous copy of `t` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(12, 192, 33, 3), (12, 192, 130, 3), (3, 17, 33, 3),
+                                   (1, 5, 33, 3), (3, 7, 33, 4)])
+def test_warp_grads_kernel_ragged_groups_and_offsets(cuda, shape):
+    """K1's pixel groups across rows, a ragged last group and pointers off 16
+    bytes: equal to the plain version."""
+    rng = np.random.default_rng(4)
+    B, H, W, C = shape
+    img = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(cuda)
+    for kind in ("smooth", "wild", "nan"):
+        grid = torch.from_numpy(_field(rng, B, H, W, kind)).to(cuda)
+        plain = warp_sample_grads_reference(img, grid)
+        runs = [warp_sample_grads(img, grid),
+                warp_sample_grads(_offset(img), _offset(grid))]
+        torch.cuda.synchronize()
+        for ours in runs:
+            for a, b in zip(ours, plain):
+                assert torch.equal(a.isnan(), b.isnan())
+                assert torch.equal(a.nan_to_num(), b.nan_to_num()), (kind, shape)
+
+
+def _vjp_inputs(rng, cuda, B, H, W, C, kind, full=None):
+    """(grid, dout, gx, gy, full height) with gx, gy from K1 (K3 for a
+    slab's grid: rows 96-191 of a 192-row image)."""
+    img = torch.from_numpy(rng.uniform(size=(B, full or H, W, C)).astype(np.float32)).to(cuda)
+    grid = torch.from_numpy(_field(rng, B, full or H, W, kind)).to(cuda)
+    if full is None:
+        _, gx, gy = warp_sample_grads(img, grid)
+        full = H
+    else:
+        grid = grid[:, full - H:].contiguous()
+        _, gx, gy = warp_sample_grads_shifted(img, grid, 0, full)
+    dout = torch.from_numpy(rng.standard_normal((B, H, W, C)).astype(np.float32)).to(cuda)
+    return grid, dout, gx, gy, full
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,shape,full", [(k, s, None) for k, s in CASES]
+                         + [("smooth", (12, 96, 640, 3), 192), ("wild", (12, 96, 640, 3), 192),
+                            ("wild", (3, 7, 33, 4), None), ("smooth", (1, 5, 33, 3), None)])
+def test_grid_vjp_kernel_matches_plain(cuda, kind, shape, full):
+    """K1-bwd against `grid_vjp_reference`: equal, NaN where it has NaN,
+    also off 16 bytes and on an expanded cotangent."""
+    rng = np.random.default_rng(5)
+    grid, dout, gx, gy, full = _vjp_inputs(rng, cuda, *shape, kind, full)
+    before = grid_vjp.launches
+    ours = grid_vjp(grid, dout, gx, gy, full)
+    unaligned = grid_vjp(*map(_offset, (grid, dout, gx, gy)), full)
+    wide = dout[:, :1, :1].expand_as(dout)
+    expanded = grid_vjp(grid, wide, gx, gy, full)
+    torch.cuda.synchronize()
+    assert grid_vjp.launches == before + 3
+    plain = grid_vjp_reference(grid, dout, gx, gy, full)
+    for out, want in ((ours, plain), (unaligned, plain),
+                      (expanded, grid_vjp_reference(grid, wide.contiguous(), gx, gy, full))):
+        assert torch.equal(out.isnan(), want.isnan())
+        assert torch.equal(out.nan_to_num(), want.nan_to_num())
+    if kind == "nan":
+        assert bool(ours.isnan().any())
+
+
+@pytest.mark.gpu
+def test_grid_vjp_kernel_rejects_what_it_cannot_take(cuda):
+    grid, t = torch.zeros((1, 8, 16, 2), device=cuda), torch.zeros((1, 8, 16, 3), device=cuda)
+    with pytest.raises(TypeError):
+        grid_vjp(grid.double(), t.double(), t.double(), t.double(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        grid_vjp(grid, t, t.transpose(1, 2).contiguous().transpose(1, 2), t, 8)
+    with pytest.raises(ValueError, match="alike"):
+        grid_vjp(grid, t[..., :2], t, t, 8)
+
+
+@pytest.mark.gpu
+def test_stride0_cotangent_on_card(cuda):
+    """`out.sum().backward()`'s expanded cotangent through K1-bwd gives
+    the dgrid of an explicit `torch.ones`."""
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy(rng.uniform(size=(2, 16, 40, 3)).astype(np.float32)).to(cuda)
+    field = torch.from_numpy(_field(rng, 2, 16, 40, "smooth")).to(cuda)
+    dgrids = []
+    for explicit in (False, True):
+        g = field.clone().requires_grad_(True)
+        out = WarpSample.apply(img, g)
+        out.backward(torch.ones_like(out)) if explicit else out.sum().backward()
+        dgrids.append(g.grad)
+    assert torch.equal(dgrids[0], dgrids[1])
 
 
 @pytest.mark.gpu
@@ -151,8 +250,8 @@ def test_eval_step_on_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 def test_train_step_launches_k1_eight_times(cuda):
-    """f32, small: one train step on the card launches K1 once per warp
-    (2 sources x 4 scales) and K2 never, and its loss agrees with the CPU
+    """f32, small: one train step on the card launches K1 and K1-bwd once
+    per warp (2 sources x 4 scales) and K2 never, and its loss agrees with the CPU
     step's (plain warp) from the same weights, batch and noise."""
     cfg = Config(height=64, width=128, batch=2, precision="f32")
     scenes = make_planar_scenes(2, 64, 128, seed=0)
@@ -166,20 +265,21 @@ def test_train_step_launches_k1_eight_times(cuda):
         create_state(cfg, model, steps_per_epoch=10), batch, noise=noise)
     model = build_model(cfg)
     model.load_state_dict(sd)
-    before = (warp_sample.launches, warp_sample_grads.launches)
+    before = (warp_sample.launches, warp_sample_grads.launches, grid_vjp.launches)
     card = make_train_step(model, cfg)(create_state(cfg, model, steps_per_epoch=10),
                                        batch, noise=noise)
     torch.cuda.synchronize()
-    assert (warp_sample.launches, warp_sample_grads.launches) == \
-        (before[0], before[1] + 8)
+    assert (warp_sample.launches, warp_sample_grads.launches, grid_vjp.launches) == \
+        (before[0], before[1] + 8, before[2] + 8)
     np.testing.assert_allclose(float(card["loss"]), float(cpu["loss"]), rtol=1e-4)
 
 
 @pytest.mark.gpu
 def test_train_step_is_deterministic(cuda):
     """bf16 at the headline width, small batch: two train steps from one
-    state, the kernel warp in one and the plain warp in the other, give
-    the same loss and bit-identical gradients."""
+    state, the kernel warp (K1, K1-bwd) in one and the plain warp (forward
+    and backward) in the other, give the same loss and bit-identical
+    gradients."""
     import copy
 
     cfg = Config(height=192, width=640, batch=2)
