@@ -84,11 +84,35 @@ Phases, each fatal on failure:
    this run where larger; bf16 first-step gradients, module by module,
    rel-L2 <= the one card's own bf16-vs-f32 gradient rel-L2 of this run
    (at least 1e-3). With one card it prints that it did not run;
-8. the `kernels` JSON line, then the last line
+8. the KITTI host data path and the Eigen CLI, on one card at the
+   headline config (full width and depth, bf16), under `build/phase8/`:
+   a. a `make_kitti_tree` tree at KITTI's native 375x1242 (26 frames, both
+      cameras), 48 train lines and a 46-line test list;
+   b. the seeded model's encoder and decoder as official-layout
+      `encoder.pth`/`depth.pth`, converted by `python -m
+      monodepth_tpu_torch.tools.convert_torch_weights monodepth2`, then
+      `python -m monodepth_tpu_torch.model_test --eval_batch 16
+      --save_pred_disps` (batches 16, 16, 14): the table prints, the saved
+      disparities equal `make_infer_step` on the same frames in the same
+      batches (max |diff| <= 1e-3 · max |disp|), `eigen_metrics` of them
+      is the printed row;
+   c. `KittiDataset` (training, GT) batches of 12 through `Loader` and
+      `prefetch_to_device` into 2 train steps (16 K1, 16 K1-bwd launches)
+      and 2 eval steps (16 K2 launches, depth metrics finite), counts set
+      to 0 just before each path; every batch on the card equal to the
+      host arrays; one eval step again with the plain warp, loss rtol 1e-5;
+   d. one --remat train step from a deep copy against one without: loss
+      rtol 1e-5, per-module gradient rel-L2 <= 1e-3, running statistics
+      equal and counted once, K1 16 launches against 8, the peak memory
+      of each;
+   e. loader batches/s (native decoder and PIL), GT projection ms/image,
+      the Eigen sweep's images/s, the peak memory with and without remat;
+9. the `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    K3's launches there are those of phase 7's largest mesh in bf16 (rank
    0) when phase 7 ran, else phase 6b's one-card per-rank emulation;
-   "launches_on" says which.
+   "launches_on" says which. K1, K1-bwd and K2 also carry their launches
+   on phase 8c's loader path ("launches_loader_path").
 """
 
 from __future__ import annotations
@@ -1150,6 +1174,308 @@ def phase_main_path(torch, ws, card):
     return launches
 
 
+PHASE8 = os.path.join(HERE, "build", "phase8")
+EVAL_LINES, EVAL_BATCH = 46, 16
+
+
+def kitti_tree():
+    """Phase 8a: a synthetic KITTI tree at KITTI's native image size
+    (375x1242, 26 frames, both cameras) and its split files: 48 lines with
+    both neighbours (train), the first 46 of them as the test list, so
+    that --eval_batch 16 ends in a ragged batch of 14. -> (datapath,
+    splits dir, test lines, train lines)."""
+    import shutil
+
+    from monodepth_tpu_torch.data import kitti
+    from monodepth_tpu_torch.data.synthetic import DRIVE, make_kitti_tree
+
+    shutil.rmtree(PHASE8, ignore_errors=True)
+    t = time.perf_counter()
+    root = make_kitti_tree(os.path.join(PHASE8, "kitti"), num_frames=26, seed=0,
+                           image_hw=(375, 1242))
+    lines = [f"{DRIVE} {i} {side}" for i in range(1, 25) for side in "lr"]
+    splits = os.path.join(PHASE8, "splits")
+    os.makedirs(os.path.join(splits, "kitti_eigen_zhou"))
+    kitti.savelines(lines[:EVAL_LINES],
+                    os.path.join(splits, "kitti_eigen_zhou", "test_files.txt"))
+    kitti.savelines(lines, os.path.join(splits, "kitti_eigen_zhou", "train_files.txt"))
+    log(f"phase 8a: KITTI tree, 26 frames x 2 cameras at 375x1242, "
+        f"{EVAL_LINES} test and {len(lines)} train lines: {time.perf_counter() - t:.1f} s")
+    return root, splits, lines[:EVAL_LINES], lines
+
+
+def phase_eigen_cli(torch, root, splits, lines, card) -> dict:
+    """Phase 8b: the seeded headline model's encoder and decoder written as
+    official-layout `encoder.pth` and `depth.pth`, converted by the port's
+    `convert_torch_weights monodepth2`, evaluated by `python -m
+    monodepth_tpu_torch.model_test` (a subprocess, on the card) with
+    --save_pred_disps. The saved disparities against `make_infer_step` on
+    the same decoded frames in the same batches (max |diff| <= 1e-3 · max
+    |disp|: the processes may pick other cuDNN algorithms), the printed
+    table against `eigen_metrics` of those disparities. -> its numbers."""
+    import numpy as np
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.evaluation import eigen
+    from monodepth_tpu_torch.training.state import build_model
+    from monodepth_tpu_torch.training.step import make_infer_step
+
+    cfg = Config(datapath=root, splits=splits, weight_init=False)
+    model = build_model(cfg)  # on the card, seeded from cfg.seed
+    pth, weights = os.path.join(PHASE8, "pth"), os.path.join(PHASE8, "weights")
+    os.makedirs(pth)
+    torch.save({**{f"encoder.{k}": v.cpu() for k, v in model.encoder.state_dict().items()},
+                "height": cfg.height, "width": cfg.width}, os.path.join(pth, "encoder.pth"))
+    torch.save({k: v.cpu() for k, v in model.decoder.state_dict().items()},
+               os.path.join(pth, "depth.pth"))
+
+    def run(*args):
+        return subprocess.run([sys.executable, "-m", *args], cwd=HERE, capture_output=True,
+                              text=True, timeout=600, env={**os.environ, "PYTHONPATH": HERE})
+
+    done = run("monodepth_tpu_torch.tools.convert_torch_weights", "monodepth2", pth,
+               weights, "--epoch", "0")
+    check(done.returncode == 0, f"convert_torch_weights failed:\n{done.stderr[-3000:]}")
+    check(sorted(os.listdir(weights)) == ["decoder0.npz", "encoder0.npz"],
+          f"convert_torch_weights wrote {sorted(os.listdir(weights))}")
+    out = os.path.join(PHASE8, "disps.npy")
+    t = time.perf_counter()
+    done = run("monodepth_tpu_torch.model_test", "--datapath", root, "--splits", splits,
+               "--eval_batch", str(EVAL_BATCH), "--weights", f"{weights}:0",
+               "--save_pred_disps", out, "--gt_cache", os.path.join(PHASE8, "gt_cache"))
+    cli_s = time.perf_counter() - t
+    check(done.returncode == 0, f"model_test failed:\n{done.stderr[-3000:]}")
+    log(done.stdout.strip())
+    printed = done.stdout.rstrip("\n").splitlines()  # the row ends in spaces
+    disps = np.load(out)
+    check(disps.shape == (EVAL_LINES, cfg.height, cfg.width) and bool(np.isfinite(disps).all()),
+          f"saved disparities {disps.shape}, finite {bool(np.isfinite(disps).all())}")
+
+    # the same weights in this process, the same batches, the direct infer step
+    loaded = eigen.state_from_modules(cfg, weights, 0)
+    want = model.state_dict()
+    for key, value in loaded.state_dict().items():
+        if key.split(".")[0] in ("encoder", "decoder") and "num_batches" not in key:
+            check(torch.equal(value, want[key]), f"converted weight {key} differs")
+    infer = make_infer_step(loaded, cfg)
+    batches = list(eigen.eval_batches(cfg, lines, EVAL_BATCH))
+    sizes = [len(b) for b in batches]
+    check(sizes == [16, 16, 14], f"eval batches {sizes}, expected [16, 16, 14]")
+    direct = np.concatenate([infer(b).float().cpu().numpy() for b in batches])
+    diff, scale = float(np.abs(direct - disps).max()), float(np.abs(direct).max())
+    log(f"model_test disparities vs make_infer_step on the same batches: max|diff| "
+        f"{diff:.3e} (max |disp| {scale:.3e})")
+    check(diff <= 1e-3 * scale, f"CLI vs direct infer: max|diff| {diff} > 1e-3 * {scale}")
+
+    t = time.perf_counter()
+    gts = eigen.load_ground_truth(root, lines)
+    gt_ms = (time.perf_counter() - t) * 1e3 / len(lines)
+    metrics = eigen.eigen_metrics(disps, gts)
+    row = ">>>" + ("   {:4.3f}  " * 7).format(*metrics.values())
+    check(all(np.isfinite(list(metrics.values()))), f"non-finite metrics {metrics}")
+    check(printed[-3:] == [f">>> {weights}:0", printed[-2], row]
+          and "abs_rel" in printed[-2] and printed[0] == f">>> Testset length {EVAL_LINES}",
+          f"printed table {printed[-3:]} differs from eigen_metrics {row!r}")
+
+    # the sweep in this process: predict_disparities (loader, infer, host copy)
+    def sweep(_):
+        eigen.predict_disparities(cfg, loaded, lines, EVAL_BATCH, infer=infer)
+
+    sweep(0)  # warm: loader threads, cuDNN for the ragged batch
+    sweep_ms = host_ms(torch, sweep, n=3)
+    return {"cli_seconds": cli_s, "cli_vs_direct_max_abs": diff, "max_abs_disp": scale,
+            "metrics": metrics, "gt_projection_ms_per_image": gt_ms,
+            "eigen_sweep_images_per_s": len(lines) / sweep_ms * 1e3,
+            "eigen_sweep_ms": sweep_ms}
+
+
+def phase_loader_path(torch, ws, root, lines, card):
+    """Phase 8c: `KittiDataset` (training, with GT) batches of 12 through
+    `Loader` and `prefetch_to_device` into 2 train steps and 2 eval steps
+    on a fresh seeded headline model, each path with the launch counts set
+    to 0 just before it and read just after; every batch on the card equal
+    to the host batch of the same epoch. -> (cfg, state, a card batch,
+    launches)."""
+    import numpy as np
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.data.dataset import KittiDataset
+    from monodepth_tpu_torch.data.pipeline import Loader, prefetch_to_device
+    from monodepth_tpu_torch.training.state import build_model, create_state
+    from monodepth_tpu_torch.training.step import make_eval_step, make_train_step
+
+    cfg = Config(datapath=root).validate()
+    dataset = KittiDataset(root, lines, is_training=True, frame_ids=cfg.frame_ids,
+                           height=cfg.height, width=cfg.width, load_depth=True)
+    loader = Loader(dataset, cfg.batch, shuffle=True, num_workers=8, seed=cfg.seed,
+                    process_index=0, process_count=1)
+    model = build_model(cfg)
+    state = create_state(cfg, model, steps_per_epoch=len(loader))
+    train_step, eval_step = make_train_step(model, cfg), make_eval_step(model, cfg)
+    try:
+        host = list(loader.epoch(0))
+        check(len(host) == 4, f"{len(host)} batches of 12 from {len(lines)} lines")
+        arriving = prefetch_to_device(loader.epoch(0), size=2)
+
+        def arrive(i):
+            batch = next(arriving)
+            for key, value in batch.items():
+                check(value.is_cuda and torch.equal(value.cpu(), torch.from_numpy(host[i][key])),
+                      f"batch {i} {key}: the card's copy differs from the host array")
+            return batch
+
+        ws.warp_sample.launches = 0
+        ws.warp_sample_grads.launches = 0
+        ws.grid_vjp.launches = 0
+        train = [train_step(state, arrive(i)) for i in range(2)]
+        torch.cuda.synchronize()
+        k1, bwd, k2 = (ws.warp_sample_grads.launches, ws.grid_vjp.launches,
+                       ws.warp_sample.launches)
+        check((k1, bwd, k2) == (16, 16, 0), f"2 train steps on loader batches launched K1 "
+              f"{k1}, K1-bwd {bwd}, K2 {k2} times; expected 16, 16, 0")
+        losses = [float(m["loss"]) for m in train]
+        check(all(np.isfinite(losses)), f"non-finite train loss {losses}")
+
+        ws.warp_sample.launches = 0
+        ws.warp_sample_grads.launches = 0
+        batches = [arrive(2), arrive(3)]
+        evals = [eval_step(state, b, i) for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        k2, k1_eval = ws.warp_sample.launches, ws.warp_sample_grads.launches
+        check((k2, k1_eval) == (16, 0), f"2 eval steps on loader batches launched K2 {k2}, "
+              f"K1 {k1_eval} times; expected 16, 0")
+        check(next(arriving, None) is None, "prefetch_to_device yielded more than 4 batches")
+    finally:
+        loader.close()
+    depth = {k: float(v) for k, v in evals[0].items() if k not in ("loss", "warp_span")}
+    check(len(depth) == 7 and all(np.isfinite(list(depth.values()))),
+          f"eval depth metrics {depth}")
+    plain = make_eval_step(model, cfg, sampler=ws.warp_sample_reference)(state, batches[0], 0)
+    loss, plain_loss = float(evals[0]["loss"]), float(plain["loss"])
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    check(rel <= 1e-5, f"loader eval step, kernel vs plain warp loss rel {rel} > 1e-5")
+    log(json.dumps({"path": "KITTI loader -> prefetch_to_device -> train and eval steps, "
+                            "640x192 b12 bf16", "train_losses": losses,
+                    "eval_losses": [float(m["loss"]) for m in evals], "eval_depth": depth,
+                    "eval_kernel_vs_plain_loss_rel": rel,
+                    "launches": {"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd,
+                                 "warp_sample_fwd": k2},
+                    "card": card}))
+    return cfg, state, batches[0], {"warp_sample_fwd_grads": k1,
+                                    "warp_sample_bwd_grid": bwd, "warp_sample_fwd": k2}
+
+
+def phase_remat(torch, ws, cfg, state, batch, card) -> dict:
+    """Phase 8d: one train step with --remat from a deep copy of the state
+    against one without, on one loader batch (cuDNN deterministic for the
+    pair): loss rtol 1e-5, per-module gradient rel-L2 <= 1e-3, running
+    statistics equal and counted once, K1 16 times with remat and 8
+    without, K1-bwd 8 each; the peak memory of each step."""
+    import dataclasses
+
+    from monodepth_tpu_torch.training.state import MODULES, module_grads
+    from monodepth_tpu_torch.training.step import make_train_step
+
+    twin = copy.deepcopy(state)
+    for encoder in (twin.model.encoder, twin.model.pose_encoder):
+        encoder.remat = True
+    tracked = {k: int(v) for k, v in state.model.named_buffers() if "num_batches" in k}
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, c, s in (("plain", cfg, state),
+                           ("remat", dataclasses.replace(cfg, remat=True), twin)):
+            step = make_train_step(s.model, c)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ws.warp_sample_grads.launches = 0
+            ws.grid_vjp.launches = 0
+            loss = float(step(s, batch)["loss"])
+            torch.cuda.synchronize()
+            runs[name] = {"loss": loss, "k1": ws.warp_sample_grads.launches,
+                          "k1_bwd": ws.grid_vjp.launches,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "step_peak_above_start_bytes": torch.cuda.max_memory_allocated() - base}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rel = abs(runs["remat"]["loss"] - runs["plain"]["loss"]) / abs(runs["plain"]["loss"])
+    gp, gr = module_grads(state.model), module_grads(twin.model)
+    grad_rel = {m: float((gr[m] - gp[m]).norm() / gp[m].norm()) for m in MODULES}
+    log(json.dumps({"path": "--remat train step vs without, one loader batch, 640x192 b12 bf16",
+                    "loss_rel": rel, "grad_rel_l2": grad_rel, **runs, "card": card}))
+    check((runs["plain"]["k1"], runs["remat"]["k1"]) == (8, 16),
+          f"K1 launches {runs['plain']['k1']} without remat, {runs['remat']['k1']} with; "
+          "expected 8 and 16")
+    check(runs["plain"]["k1_bwd"] == runs["remat"]["k1_bwd"] == 8, "K1-bwd launches not 8")
+    check(rel <= 1e-5, f"remat vs plain train loss rel {rel} > 1e-5")
+    check(all(v <= 1e-3 for v in grad_rel.values()), f"remat grad rel-L2 {grad_rel} > 1e-3")
+    ours, theirs = dict(twin.model.named_buffers()), dict(state.model.named_buffers())
+    for key, value in theirs.items():
+        check(torch.equal(ours[key], value), f"remat step: buffer {key} differs")
+    for key, n in tracked.items():
+        runs_ = 1 if key.startswith("encoder.") else len(cfg.source_frame_ids)
+        check(int(theirs[key]) == n + runs_, f"{key}: {n} -> {int(theirs[key])}, "
+              f"expected +{runs_} (one update per batch it saw)")
+    return runs
+
+
+def loader_rates(torch, root, lines) -> dict:
+    """Phase 8e: `Loader` batches/s at 640x192 b12 over the training
+    dataset (3 frames, GT), native decoder and PIL: 3 epochs of 4 batches
+    after a warm-up epoch, 8 threads."""
+    from monodepth_tpu_torch import native
+    from monodepth_tpu_torch.data.dataset import KittiDataset
+    from monodepth_tpu_torch.data.pipeline import Loader
+
+    rates = {}
+    for decoder in ("native", "PIL"):
+        if decoder == "native" and not native.available():
+            rates[decoder] = "not available (no g++ or libjpeg): not measured"
+            continue
+        dataset = KittiDataset(root, lines, is_training=True, frame_ids=(0, -1, 1),
+                               use_native=decoder == "native")
+        loader = Loader(dataset, 12, shuffle=True, num_workers=8,
+                        process_index=0, process_count=1)
+        try:
+            list(loader.epoch(0))
+            t = time.perf_counter()
+            n = sum(1 for e in range(1, 4) for _ in loader.epoch(e))
+            rates[decoder] = n / (time.perf_counter() - t)
+        finally:
+            loader.close()
+    return rates
+
+
+def phase_kitti(torch, ws, card) -> dict:
+    """Phase 8, on one card at the headline config. Returns the launches
+    of K1, K1-bwd and K2 on the loader path (8c)."""
+    from monodepth_tpu_torch import native
+
+    decoder = "native (C++ libjpeg + Lanczos)" if native.available() else "PIL"
+    log(f"phase 8: the dataset decodes with {decoder}")
+    root, splits, test_lines, train_lines = kitti_tree()
+    cli = phase_eigen_cli(torch, root, splits, test_lines, card)
+    cfg, state, batch, launches = phase_loader_path(torch, ws, root, train_lines, card)
+    remat = phase_remat(torch, ws, cfg, state, batch, card)
+    rates = loader_rates(torch, root, train_lines)
+    log(json.dumps({"phase": "8e, KITTI host path and Eigen CLI, 640x192",
+                    "decoder": decoder, "loader_batches_per_s_b12": rates,
+                    "loader_timing": "host clock, 3 epochs of 4 batches after a warm-up "
+                                     "epoch, 8 threads, training samples (3 frames + GT)",
+                    **cli,
+                    "eigen_timing": "host clock, predict_disparities over 46 images "
+                                    "(eval_batch 16), median of 3 after one warm sweep",
+                    "remat_peak_bytes": remat["remat"]["peak_bytes"],
+                    "plain_peak_bytes": remat["plain"]["peak_bytes"],
+                    "remat_step_peak_above_start_bytes":
+                        remat["remat"]["step_peak_above_start_bytes"],
+                    "plain_step_peak_above_start_bytes":
+                        remat["plain"]["step_peak_above_start_bytes"],
+                    "card": card}))
+    return launches
+
+
 def _device_total(event) -> float:
     """Device µs of the kernels launched under a CPU-side event."""
     for name in ("device_time_total", "cuda_time_total"):
@@ -1244,10 +1570,13 @@ def main() -> int:
     if mesh is not None:
         k3, k3_on = mesh
         launches.update(k3)
+    loader_launches = phase_kitti(torch, ws, card)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in SHIFTED:
             entry["launches_on"] = k3_on
+        if entry["name"] in loader_launches:
+            entry["launches_loader_path"] = loader_launches[entry["name"]]
 
     log(json.dumps({"kernels": entries}))
     log(card)

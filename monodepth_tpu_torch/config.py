@@ -12,9 +12,11 @@ package. Some flags were written for the TPU build; here they mean:
 - ``--spatial_halo``: the rows each rank of a spatial mesh sends to each
   neighbour for its warps (capped at its own row count), as in JAX; a
   warp whose taps leave the slab falls back to an exact gathered warp.
-- ``--remat``: accepted and ignored. In JAX it only rematerializes the
-  warp sampler; here the train step keeps the kernel's tap differences
-  (two [B, H, W, 3] f32 tensors per warp), which are small.
+- ``--remat``: as in JAX, both encoders recompute each residual block
+  in the backward instead of keeping its activations
+  (``torch.utils.checkpoint``; the recomputation does not update the
+  batch-norm running statistics again), and the train step recomputes
+  each warp, so the train-form warp kernel runs twice per warp.
 - ``--donate``: accepted and ignored. The train step updates the
   parameters and the optimizer state in place.
 - ``--steps_per_call``, ``--warp_guard`` and ``--warp_auto_swap``:
@@ -87,7 +89,7 @@ class Config:
                                          # even when the kernels are off
     pallas_interpret: bool = False       # ignored
     train_gt_metrics: bool = False
-    remat: bool = False                  # ignored
+    remat: bool = False                  # recompute encoder blocks and warps
     donate: bool = False                 # ignored
     steps_per_call: int = 1              # ignored until the training loop is ported
     cache_frames: bool = False

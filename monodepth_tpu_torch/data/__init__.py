@@ -1,1 +1,3 @@
-"""Data helpers: intrinsics, synthetic scenes, on-device augmentation."""
+"""Data: the KITTI host path (split lists, calibration, velodyne GT, the
+dataset, the threaded loader and the prefetch to the card), synthetic
+trees and scenes, on-device augmentation."""

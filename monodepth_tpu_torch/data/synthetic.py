@@ -1,16 +1,95 @@
-"""Synthetic planar scenes with exact self-supervised geometry (numpy + PIL).
+"""Synthetic data with no dataset on disk (numpy + PIL): a mini KITTI raw
+tree and planar scenes with exact self-supervised geometry.
 
-A copy of `monodepth_tpu.data.synthetic.make_planar_scenes` and its
-texture helper, so the port can drive its eval step at full width with
-no dataset on disk. Same seed, same bytes as the JAX package's copy.
+Copies of `monodepth_tpu.data.synthetic`'s `make_kitti_tree`,
+`make_split_files` and `make_planar_scenes` (with its texture helper).
+Same seed, same bytes as the JAX package's: the tree's JPEGs, scans,
+calibration and split files are equal file for file.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 from PIL import Image
 
 from monodepth_tpu_torch.data import kitti
+
+DRIVE = "2011_09_26/2011_09_26_drive_0001_sync"
+
+_CALIB_CAM = """calib_time: 09-Jan-2012 13:57:47
+S_rect_02: 1.242000e+03 3.750000e+02
+R_rect_00: 1 0 0 0 1 0 0 0 1
+P_rect_02: 7.215377e+02 0.000000e+00 6.095593e+02 0.000000e+00 0.000000e+00 7.215377e+02 1.728540e+02 0.000000e+00 0.000000e+00 0.000000e+00 1.000000e+00 0.000000e+00
+P_rect_03: 7.215377e+02 0.000000e+00 6.095593e+02 -3.395242e+02 0.000000e+00 7.215377e+02 1.728540e+02 0.000000e+00 0.000000e+00 0.000000e+00 1.000000e+00 0.000000e+00
+"""
+
+# standard KITTI axis permutation: cam x = -velo y, cam y = -velo z,
+# cam z = velo x (forward)
+_CALIB_VELO = """calib_time: 15-Mar-2012 11:37:16
+R: 0 -1 0 0 0 -1 1 0 0
+T: 0 0 0
+"""
+
+
+def make_kitti_tree(root: str, num_frames: int = 6, seed: int = 0,
+                    image_hw=(96, 320)) -> str:
+    """Create a synthetic KITTI raw tree with `num_frames` frames in one
+    drive, both cameras (smooth random JPEGs, 2000 velodyne returns a
+    frame inside the camera's frustum, KITTI calibration). Returns the
+    datapath root."""
+    rng = np.random.default_rng(seed)
+    date_dir = os.path.join(root, "2011_09_26")
+    drive_dir = os.path.join(root, DRIVE)
+    for sub in ("image_02/data", "image_03/data", "velodyne_points/data"):
+        os.makedirs(os.path.join(drive_dir, sub), exist_ok=True)
+
+    with open(os.path.join(date_dir, "calib_cam_to_cam.txt"), "w") as f:
+        f.write(_CALIB_CAM)
+    with open(os.path.join(date_dir, "calib_velo_to_cam.txt"), "w") as f:
+        f.write(_CALIB_VELO)
+
+    H, W = image_hw
+    for i in range(num_frames):
+        # smooth random images so photometric losses behave
+        small = rng.uniform(0, 255, (H // 8, W // 8, 3))
+        img = np.asarray(Image.fromarray(small.astype(np.uint8)).resize(
+            (W, H), Image.BILINEAR))
+        for cam in ("image_02", "image_03"):
+            Image.fromarray(img).save(
+                os.path.join(drive_dir, cam, "data", f"{i:010d}.jpg"),
+                quality=92)
+
+        # forward-facing points that land inside the image frustum
+        n = 2000
+        pts = np.zeros((n, 4), dtype=np.float32)
+        fwd = rng.uniform(2.0, 60.0, n)
+        pts[:, 0] = fwd                                  # forward (cam z)
+        pts[:, 1] = rng.uniform(-0.5, 0.5, n) * fwd      # left (cam -x)
+        pts[:, 2] = rng.uniform(-0.15, 0.2, n) * fwd     # up (cam -y)
+        pts[:, 3] = rng.uniform(0.0, 1.0, n)             # reflectance
+        pts.tofile(os.path.join(drive_dir, "velodyne_points/data",
+                                f"{i:010d}.bin"))
+    return root
+
+
+def make_split_files(root: str, num_frames: int = 6,
+                     datatype: str = "kitti_eigen_zhou") -> str:
+    """Write train/val/test split lists (middle frames only, so +-1
+    neighbors exist). Returns the splits dir."""
+    splits_dir = os.path.join(root, "splits", datatype)
+    os.makedirs(splits_dir, exist_ok=True)
+    frames = [f"{DRIVE} {i} l" for i in range(1, num_frames - 1)]
+    frames += [f"{DRIVE} {i} r" for i in range(1, num_frames - 1)]
+    n = len(frames)
+    groups = {"train": frames[: max(n - 2, 1)],
+              "val": frames[max(n - 2, 1):] or frames[:1],
+              "test": frames[:2]}
+    for name, lines in groups.items():
+        with open(os.path.join(splits_dir, f"{name}_files.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return os.path.join(root, "splits")
 
 
 def _smooth_texture(rng: np.random.Generator, height: int, width: int,

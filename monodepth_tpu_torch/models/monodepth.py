@@ -12,6 +12,8 @@ Public methods take and return NHWC (frames [B, F, H, W, 3], disparities
 [B, h, w, 1]); the submodules run NCHW. state_dict keys: `encoder.*`
 (torchvision), `decoder.decoder.{idx}.*` and `pose_decoder.net.{idx}.*`
 (official Monodepth2), `pose_encoder.*` (torchvision, 6-channel conv1).
+`remat` recomputes both encoders' residual blocks in the backward
+(`ResNetEncoder`), as the JAX `Monodepth` hands it to both encoders.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class Monodepth(nn.Module):
                  scales: Tuple[int, ...] = (0, 1, 2, 3),
                  frame_ids: Tuple[FrameId, ...] = (0, -1, 1),
                  pose_type: str = "separate",
-                 pose_frames: Union[int, str] = 2):
+                 pose_frames: Union[int, str] = 2,
+                 remat: bool = False):
         super().__init__()
         if pose_type != "separate":
             raise NotImplementedError(
@@ -58,9 +61,9 @@ class Monodepth(nn.Module):
         self.frame_ids = tuple(frame_ids)
         self.pose_frames = pose_frames
         ch = num_ch_enc(num_layers)
-        self.encoder = ResNetEncoder(num_layers, 1)
+        self.encoder = ResNetEncoder(num_layers, 1, remat)
         self.decoder = DepthDecoder(ch, self.scales)
-        self.pose_encoder = ResNetEncoder(num_layers, 2)
+        self.pose_encoder = ResNetEncoder(num_layers, 2, remat)
         # the reference always predicts 2 frames here (loader.py:85-86)
         self.pose_decoder = PoseDecoder(ch, 1, 2)
 

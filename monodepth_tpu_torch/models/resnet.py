@@ -11,7 +11,10 @@ and under `sync_batch_stats` it normalizes with the statistics of the
 global batch of a data-parallel step; max-pool pads with -inf. Names
 follow torchvision (conv1, bn1,
 layer1.0.conv2, layer2.0.downsample.0, ...), so torchvision and official
-Monodepth2 encoder checkpoints load as they are.
+Monodepth2 encoder checkpoints load as they are. With `remat`, each
+residual block's activations are recomputed in the backward instead of
+kept (flax's `nn.remat` of the JAX encoder); the recomputation leaves the
+running statistics alone, so a step updates them once, as flax does.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from monodepth_tpu_torch.parallel.mesh import all_reduce_sum
 
@@ -63,9 +67,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     normalizes with the global batch's mean and biased variance
     E[x²] - E[x]² (flax's fast variance, floored at 0), as flax does
     under a data-sharded mesh; the running statistics take the same
-    biased blend. `nn.SyncBatchNorm` would store the unbiased variance."""
+    biased blend. `nn.SyncBatchNorm` would store the unbiased variance.
+
+    While `keep_stats` is set (`Recomputation`, around a checkpointed
+    block's recomputation), train mode normalizes as always but leaves the
+    running statistics and `num_batches_tracked` as they are."""
 
     process_group = None
+    keep_stats = False
 
     def forward(self, x):
         n = x.numel() // x.shape[1]
@@ -79,6 +88,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = self.running_var * unbias
         out = F.batch_norm(x, mean, var, self.weight, self.bias, True,
                            self.momentum, self.eps)
+        if self.keep_stats:
+            return out
         with torch.no_grad():
             self.running_mean.copy_(mean)
             torch.div(var, unbias, out=self.running_var)
@@ -99,6 +110,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         scale = torch.rsqrt(var + self.eps) * self.weight
         out = (xf - mean[:, None, None]) * scale[:, None, None] \
             + self.bias[:, None, None]
+        if self.keep_stats:
+            return out.to(x.dtype)
         with torch.no_grad():
             for buf, value in ((self.running_mean, mean), (self.running_var, var)):
                 buf.mul_(1.0 - self.momentum).add_(value.to(buf.dtype),
@@ -120,6 +133,33 @@ def sync_batch_stats(model: nn.Module, group) -> Iterator[None]:
     finally:
         for m in norms:
             m.process_group = None
+
+
+class Recomputation:
+    """The context of a checkpointed block's recomputation, made when the
+    block runs forward: within it every `BatchNorm2d` of `module` keeps
+    its running statistics (`BatchNorm2d.keep_stats`), so the batch is
+    not counted twice, and normalizes over the process group it had in
+    that forward. The recomputation runs in the backward, outside
+    `sync_batch_stats`, and sums the statistics over the group again,
+    which gives the forward's values."""
+
+    def __init__(self, module: nn.Module):
+        self._norms = [(m, m.process_group) for m in module.modules()
+                       if isinstance(m, BatchNorm2d)]
+        self._outside = []
+
+    def __enter__(self):
+        self._outside = [m.process_group for m, _ in self._norms]
+        for m, group in self._norms:
+            m.keep_stats = True
+            m.process_group = group
+        return self
+
+    def __exit__(self, *exc):
+        for (m, _), group in zip(self._norms, self._outside):
+            m.keep_stats = False
+            m.process_group = group
 
 
 def _conv_bn(cin: int, cout: int, kernel: int, stride: int = 1):
@@ -165,10 +205,14 @@ class Bottleneck(nn.Module):
 
 class ResNetEncoder(nn.Module):
     """[B, 3*num_input_images, H, W] in [0, 1] -> features at strides
-    [2, 4, 8, 16, 32]."""
+    [2, 4, 8, 16, 32]. With `remat` and autograd on, each residual block
+    runs under `torch.utils.checkpoint` (non-reentrant), its recomputation
+    inside a `Recomputation`."""
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if num_layers not in STAGES:
             raise ValueError(f"{num_layers} is not a valid resnet depth")
         depths, kind = STAGES[num_layers]
@@ -195,6 +239,12 @@ class ResNetEncoder(nn.Module):
         features = [f0]
         x = self.maxpool(f0)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
+            if self.remat and torch.is_grad_enabled():
+                for block in stage:
+                    x = checkpoint(block, x, use_reentrant=False,
+                                   context_fn=lambda b=block: (
+                                       contextlib.nullcontext(), Recomputation(b)))
+            else:
+                x = stage(x)
             features.append(x)
         return features

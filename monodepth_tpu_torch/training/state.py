@@ -52,7 +52,7 @@ def build_model(cfg: Config, device=None) -> Monodepth:
     set_precision(cfg)
     model = Monodepth(num_layers=cfg.num_layers, scales=cfg.scales,
                       frame_ids=cfg.frame_ids, pose_type=cfg.pose_type,
-                      pose_frames=cfg.pose_frames)
+                      pose_frames=cfg.pose_frames, remat=cfg.remat)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     return model.to(device).eval()
 

@@ -19,6 +19,8 @@ stay f32 (or wider, following the inputs). The 8 warps of a step
 is on: `warp_sample` in the eval step, `WarpSample` (forward with the tap
 differences, gradient with respect to the grid) in the train step.
 Otherwise they are the plain `grid_sample`, differentiated by autograd.
+Under --remat each warp (whichever sampler) is checkpointed as in JAX:
+its backward recomputes the forward, so `WarpSample` launches K1 twice.
 Each step sets the model's mode itself: `.train()` for the train step
 (batch statistics, running statistics updated), `.eval()` for the others.
 
@@ -40,12 +42,14 @@ steps compute what the single-device step computes on the global batch:
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.augment import decode_frames
@@ -134,6 +138,8 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
             sampler = grid_sample
         else:
             sampler = WarpSample.apply if train else warp_sample
+    if cfg.remat and torch.is_grad_enabled():
+        sampler = functools.partial(checkpoint, sampler, use_reentrant=False)
     telemetry = cfg.use_pallas or cfg.warp_telemetry
 
     warped: Dict[int, list] = {}

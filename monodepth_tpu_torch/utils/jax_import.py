@@ -13,6 +13,8 @@ full state_dict, covering `encoder`, `decoder`, `pose_encoder` and
 - pose decoder names map to `pose_decoder.net.{0..3}`.
 float64 arrays stay float64, everything else becomes float32.
 
+`module_state_dict` converts one module at a time (the per-module npz
+exports that `evaluation.eigen.state_from_modules` reads).
 `optimizer_state_from_jax` carries optax's Adam state across by the same
 name map, so a JAX run can continue in the port mid-training.
 """
@@ -83,32 +85,47 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> "OrderedDict[str, 
                       cfg.num_layers, cfg.scales)
 
 
+def module_state_dict(name: str, params, stats: Optional[Mapping],
+                      num_layers: int, scales) -> "OrderedDict[str, torch.Tensor]":
+    """One top-level module of the JAX `Monodepth` (`encoder`, `decoder`,
+    `pose_encoder` or `pose_decoder`: its params tree, and its
+    batch_stats tree or None) -> that module's tensors under the port's
+    names; `stats` None leaves out the BN buffers. For the per-module npz
+    exports, which may hold some modules and not others."""
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    if name in ("encoder", "pose_encoder"):
+        _encoder(out, name, params, stats, num_layers)
+    elif name == "decoder":
+        names = []
+        for i in range(4, -1, -1):
+            names += [f"upconv_{i}_0", f"upconv_{i}_1"]
+        names += [f"dispconv_{s}" for s in scales]
+        for idx, conv in enumerate(names):
+            p = params[conv]["conv"]
+            key = f"decoder.decoder.{idx}.conv"
+            if conv.startswith("upconv"):  # ConvBlock -> Conv3x3 -> Conv2d
+                p, key = p["conv"], f"{key}.conv"
+            out[f"{key}.weight"] = _conv(p["kernel"])
+            out[f"{key}.bias"] = _f(p["bias"])
+    elif name == "pose_decoder":
+        for idx, conv in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
+            p = params[conv]
+            out[f"pose_decoder.net.{idx}.weight"] = _conv(p["kernel"])
+            out[f"pose_decoder.net.{idx}.bias"] = _f(p["bias"])
+    else:
+        raise ValueError(f"unknown module {name!r}")
+    return out
+
+
 def _monodepth(params, stats: Optional[Mapping], num_layers: int,
                scales) -> "OrderedDict[str, torch.Tensor]":
     """A tree shaped like the JAX `Monodepth` params -> tensors under the
     port's names; `stats` None leaves out the BN buffers."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    _encoder(out, "encoder", params["encoder"], _at(stats, "encoder"),
-             num_layers)
-
-    names = []
-    for i in range(4, -1, -1):
-        names += [f"upconv_{i}_0", f"upconv_{i}_1"]
-    names += [f"dispconv_{s}" for s in scales]
-    for idx, name in enumerate(names):
-        p = params["decoder"][name]["conv"]
-        key = f"decoder.decoder.{idx}.conv"
-        if name.startswith("upconv"):  # ConvBlock -> Conv3x3 -> Conv2d
-            p, key = p["conv"], f"{key}.conv"
-        out[f"{key}.weight"] = _conv(p["kernel"])
-        out[f"{key}.bias"] = _f(p["bias"])
-
-    _encoder(out, "pose_encoder", params["pose_encoder"],
-             _at(stats, "pose_encoder"), num_layers)
-    for idx, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
-        p = params["pose_decoder"][name]
-        out[f"pose_decoder.net.{idx}.weight"] = _conv(p["kernel"])
-        out[f"pose_decoder.net.{idx}.bias"] = _f(p["bias"])
+    for name in ("encoder", "decoder", "pose_encoder", "pose_decoder"):
+        module_stats = None if stats is None else stats.get(name)
+        out.update(module_state_dict(name, params[name], module_stats,
+                                     num_layers, scales))
     return out
 
 

@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel (the warp sampler's, its
 backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
-against its plain PyTorch version, and the launches of the eval and train
-steps. Marked `gpu`; each test skips without a
+against its plain PyTorch version, the launches of the eval and train
+steps (with --remat too), and `prefetch_to_device`'s batches on the card. Marked `gpu`; each test skips without a
 CUDA device. This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
 
@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from monodepth_tpu_torch.config import Config
-from monodepth_tpu_torch.data.synthetic import make_planar_scenes
+from monodepth_tpu_torch.data.dataset import KittiDataset
+from monodepth_tpu_torch.data.pipeline import Loader, prefetch_to_device
+from monodepth_tpu_torch.data.synthetic import DRIVE, make_kitti_tree, make_planar_scenes
 from monodepth_tpu_torch.ops.cuda import probes
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
     WarpSample,
@@ -443,3 +445,67 @@ def test_shifted_kernel_rejects_what_it_cannot_take(cuda):
             fn(slab.double(), grid.double(), -2, 16)
         with pytest.raises(ValueError, match="contiguous"):
             fn(slab.transpose(1, 2).contiguous().transpose(1, 2), grid, -2, 16)
+
+
+def _kitti_loader(tmp_path, batch: int = 4):
+    root = make_kitti_tree(str(tmp_path / "kitti"), num_frames=8, image_hw=(96, 320))
+    lines = [f"{DRIVE} {i} {side}" for i in range(1, 7) for side in "lr"]
+    dataset = KittiDataset(root, lines, is_training=True, frame_ids=(0, -1, 1),
+                           height=64, width=128)
+    return Loader(dataset, batch, shuffle=True, num_workers=2, seed=1,
+                  process_index=0, process_count=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [1, 2])
+def test_prefetch_to_card_equals_the_host_batches(cuda, tmp_path, size):
+    """Every batch `prefetch_to_device` stages on the card (pinned copies
+    on a side stream) equals the host batch, in order, and a kernel on the
+    consumer's stream reads it right after it is yielded."""
+    loader = _kitti_loader(tmp_path)
+    try:
+        host = list(loader.epoch(0))
+        card = []
+        for batch in prefetch_to_device(loader.epoch(0), size=size):
+            assert all(t.device.type == "cuda" for t in batch.values())
+            card.append({k: (v.clone(), float(v.double().sum())) for k, v in batch.items()})
+    finally:
+        loader.close()
+    assert len(card) == len(host) == 3
+    for got, want in zip(card, host):
+        assert got.keys() == want.keys()
+        for key, (tensor, total) in got.items():
+            assert torch.equal(tensor.cpu(), torch.from_numpy(want[key])), key
+            assert total == float(want[key].astype(np.float64).sum()), key
+
+
+@pytest.mark.gpu
+def test_remat_train_step_launches_k1_twice_a_warp(cuda, tmp_path):
+    """f32, small, a `Loader` batch: with --remat one train step launches K1
+    16 times (each warp recomputed in the backward) and K1-bwd 8, and
+    equals the step without remat."""
+    import copy
+    import dataclasses
+
+    cfg = Config(height=64, width=128, batch=4, precision="f32")
+    loader = _kitti_loader(tmp_path)
+    try:
+        batch = next(iter(loader.epoch(0)))
+    finally:
+        loader.close()
+    state = create_state(cfg, build_model(cfg), steps_per_epoch=10)
+    twin = copy.deepcopy(state)
+    for enc in (twin.model.encoder, twin.model.pose_encoder):
+        enc.remat = True
+    remat_cfg = dataclasses.replace(cfg, remat=True)
+    counts = []
+    losses = []
+    for c, s in ((cfg, state), (remat_cfg, twin)):
+        before = (warp_sample_grads.launches, grid_vjp.launches)
+        losses.append(float(make_train_step(s.model, c)(s, batch)["loss"]))
+        torch.cuda.synchronize()
+        counts.append((warp_sample_grads.launches - before[0], grid_vjp.launches - before[1]))
+    assert counts == [(8, 8), (16, 8)]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
+    for (name, a), b in zip(state.model.named_buffers(), twin.model.buffers()):
+        assert torch.equal(a, b), name
