@@ -107,12 +107,43 @@ Phases, each fatal on failure:
       of each;
    e. loader batches/s (native decoder and PIL), GT projection ms/image,
       the Eigen sweep's images/s, the peak memory with and without remat;
-9. the `kernels` JSON line, then the last line
+9. the Trainer at the headline config on phase 8's tree (48 train lines,
+   24 validation lines: 4 train and 2 validation steps an epoch), under
+   `build/phase9/`:
+   a. `python -m monodepth_tpu_torch.model_train --epoch 2 --ckpt_every 1
+      --eigen_every 1 --weight_init true` with a seeded torchvision-layout
+      `resnet18.pth` in `--pretrained_dir`: exit 0, two records with
+      finite losses and Eigen blocks, `state_0000.pt`, `state_0001.pt`
+      and the module exports of both epochs; `Trainer.__init__` with the
+      same flags holds the .pth's conv1 (tiled for the pose encoder);
+      `model_test` on the epoch-2 export prints the last in-training
+      sweep within 1e-3 · max |metric| + 5e-4 (the printed digit);
+   b. cuDNN deterministic: 2 epochs against 1 and then a resume, max
+      |diff| 0 over parameters, buffers and Adam state, records equal but
+      their times (on failure, the ops that
+      `torch.use_deterministic_algorithms` names);
+   c. the 2-epoch run with every kernel's count set to 0 just before
+      `train()`: K1 and K1-bwd 8 per train step, K2 8 per validation
+      step, K3 and the probes 0, and no call of a plain version;
+   d. `--steps_per_call 2` against 1 (state max |diff| 0, records equal);
+      then, with cuDNN as in phase 5a, on epochs of 24 train steps (the
+      train lines 6 times over): the Trainer's own loader alone over one
+      epoch, and the Trainer's img/s in its second epoch, with 8 and 4
+      loader threads and with `--cache_frames`, beside phase 5a's step
+      rate and the rate of the step and the loader run one after the
+      other;
+   e. the mono convergence proof (`tools/convergence_proof.py`, 600 steps
+      at 96x320 b8, `--use_pallas true --tx_sign 1`): it passes its rule,
+      with 4800 launches of K1 and of K1-bwd;
+   f. K1's device time (as phase 3) on fields whose vertical offsets span
+      about 14, 40 and 60 px and on +-50 px noise;
+10. the `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    K3's launches there are those of phase 7's largest mesh in bf16 (rank
    0) when phase 7 ran, else phase 6b's one-card per-rank emulation;
    "launches_on" says which. K1, K1-bwd and K2 also carry their launches
-   on phase 8c's loader path ("launches_loader_path").
+   on phase 8c's loader path ("launches_loader_path") and every kernel
+   its launches in phase 9c's Trainer run ("launches_trainer_path").
 """
 
 from __future__ import annotations
@@ -721,7 +752,7 @@ def phase_probe_path(torch, card) -> dict:
 
 def phase_train(torch, ws, cfg, model, state, batches, card):
     """Phase 5a. Returns the launches of K1 and K1-bwd in the 3 train
-    steps."""
+    steps, and the step's ms."""
     import numpy as np
 
     from monodepth_tpu_torch.training.state import MODULES, module_grads
@@ -784,7 +815,7 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
         {"k1": "warp_sample_fwd_grads_kernel", "k1_bwd": "warp_sample_bwd_grid_kernel"},
         ("train_step/forward", "train_step/backward", "train_step/optimizer",
          "WarpSampleBackward")), "card": card}))
-    return {"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd}
+    return {"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd}, step_ms
 
 
 def phase_eval(torch, ws, cfg, model, state, batches, card):
@@ -1153,7 +1184,7 @@ def phase_multi_gpu(torch, card):
 
 def phase_main_path(torch, ws, card):
     """Phase 5: train, then eval and infer, on one model. Returns the
-    launches of each kernel on its path."""
+    launches of each kernel on its path, and the train step's ms."""
     from monodepth_tpu_torch.config import Config
     from monodepth_tpu_torch.data.synthetic import make_planar_scenes
     from monodepth_tpu_torch.training.state import build_model, create_state
@@ -1168,10 +1199,10 @@ def phase_main_path(torch, ws, card):
     state = create_state(cfg, model, steps_per_epoch=100)
     log(f"main path setup: {time.perf_counter() - t0:.1f} s "
         f"(scenes + model, {sum(p.numel() for p in model.parameters())} params)")
-    launches = phase_train(torch, ws, cfg, model, state, batches, card)
+    launches, step_ms = phase_train(torch, ws, cfg, model, state, batches, card)
     launches["warp_sample_fwd"] = phase_eval(torch, ws, cfg, model, state, batches, card)
     launches.update(phase_spatial_path(torch, ws, cfg, state, batches[0], card))
-    return launches
+    return launches, step_ms
 
 
 PHASE8 = os.path.join(HERE, "build", "phase8")
@@ -1447,9 +1478,10 @@ def loader_rates(torch, root, lines) -> dict:
     return rates
 
 
-def phase_kitti(torch, ws, card) -> dict:
+def phase_kitti(torch, ws, card):
     """Phase 8, on one card at the headline config. Returns the launches
-    of K1, K1-bwd and K2 on the loader path (8c)."""
+    of K1, K1-bwd and K2 on the loader path (8c), the tree (datapath,
+    splits dir, test lines, train lines) and the loader rates (8e)."""
     from monodepth_tpu_torch import native
 
     decoder = "native (C++ libjpeg + Lanczos)" if native.available() else "PIL"
@@ -1473,7 +1505,346 @@ def phase_kitti(torch, ws, card) -> dict:
                     "plain_step_peak_above_start_bytes":
                         remat["plain"]["step_peak_above_start_bytes"],
                     "card": card}))
+    return launches, (root, splits, test_lines, train_lines), rates
+
+
+PHASE9 = os.path.join(HERE, "build", "phase9")
+VALID_LINES = 24  # 2 validation steps of 12
+
+
+def _records(save_dir):
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _untimed(record):
+    """A metrics.jsonl record without its wall-clock fields."""
+    out = {k: v for k, v in record.items() if k != "time"}
+    for split in ("train", "valid"):
+        out[split] = {k: v for k, v in record[split].items() if k != "img_per_sec"}
+    return out
+
+
+def state_diff(a, b) -> float:
+    """max |a - b| over two TrainStates' parameters, buffers and Adam state
+    (inf where a tensor or the step differs in shape, NaN pattern or count)."""
+    ta = list(a.model.state_dict().values())
+    tb = list(b.model.state_dict().values())
+    oa, ob = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    if a.step != b.step or len(ta) != len(tb) or oa.keys() != ob.keys():
+        return float("inf")
+    ta += [oa[i][k] for i in oa for k in sorted(oa[i])]
+    tb += [ob[i][k] for i in ob for k in sorted(ob[i])]
+    diff = 0.0
+    for x, y in zip(ta, tb):
+        x, y = x.double(), y.double()
+        if x.shape != y.shape or not bool((x.isnan() == y.isnan()).all()):
+            return float("inf")
+        d = (x - y).nan_to_num(0.0).abs()
+        diff = max(diff, float(d.max()) if d.numel() else 0.0)
+    return diff
+
+
+def nondeterministic_ops(torch, trainer) -> list:
+    """The warnings of one train step under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`: the ops
+    with no deterministic form on the card."""
+    import warnings
+
+    batch = next(iter(trainer.train_loader.epoch(0)))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        trainer.close()
+    return sorted({str(w.message)[:300] for w in caught})
+
+
+def kernel_wrappers(ws) -> dict:
+    """{name in the kernels line: wrapper} for all eight kernels; each
+    wrapper counts its launches in `.launches`."""
+    from monodepth_tpu_torch.ops.cuda import probes
+
+    out = {"warp_sample_fwd": ws.warp_sample, "warp_sample_fwd_grads": ws.warp_sample_grads,
+           "warp_sample_bwd_grid": ws.grid_vjp}
+    out.update({name: getattr(ws, fn) for name, fn in SHIFTED.items()})
+    out.update({name: getattr(probes, name) for name in PROBES})
+    return out
+
+
+class counted:
+    """Counts the calls of module attributes (the plain versions) while
+    entered: {"module.name": calls}."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.counts = {}
+
+    def __enter__(self):
+        self.saved = []
+        for module, name in self.targets:
+            fn, key = getattr(module, name), f"{module.__name__}.{name}"
+            self.counts[key] = 0
+
+            def wrapper(*args, _fn=fn, _key=key, **kw):
+                self.counts[_key] += 1
+                return _fn(*args, **kw)
+
+            self.saved.append((module, name, fn))
+            setattr(module, name, wrapper)
+        return self.counts
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def phase_train_cli(torch, root, splits, card) -> dict:
+    """Phase 9a: `python -m monodepth_tpu_torch.model_train` for 2 epochs
+    with a checkpoint and an Eigen sweep each, the encoders from a seeded
+    torchvision-layout `resnet18.pth`; then `model_test` on its export."""
+    import numpy as np
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.training import Trainer
+    from monodepth_tpu_torch.training.state import build_model
+
+    pre = os.path.join(PHASE9, "pretrained")
+    os.makedirs(pre)
+    sd = {k: v.cpu() for k, v in build_model(Config(seed=7)).encoder.state_dict().items()}
+    g = torch.Generator().manual_seed(7)
+    sd.update({"fc.weight": 0.01 * torch.randn(1000, 512, generator=g),
+               "fc.bias": torch.zeros(1000)})
+    torch.save(sd, os.path.join(pre, "resnet18.pth"))
+    flags = ["--datapath", root, "--splits", splits, "--save_root", PHASE9,
+             "--save", "cli", "--epoch", "2", "--ckpt_every", "1", "--eigen_every", "1",
+             "--log_every", "2", "--weight_init", "true", "--pretrained_dir", pre,
+             "--num_workers", "8"]
+    env = {**os.environ, "PYTHONPATH": HERE}
+    t = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "monodepth_tpu_torch.model_train", *flags],
+                          cwd=HERE, capture_output=True, text=True, timeout=600, env=env)
+    cli_s = time.perf_counter() - t
+    check(done.returncode == 0, f"model_train failed:\n{done.stderr[-3000:]}")
+    log(done.stdout.strip()[-4000:])
+    save = os.path.join(PHASE9, "cli")
+    records = _records(save)
+    check(len(records) == 2, f"{len(records)} metrics.jsonl records, expected 2")
+    for r in records:
+        losses = [r["train"]["loss"], r["valid"]["loss"]]
+        check(all(v is not None and np.isfinite(v) for v in losses),
+              f"epoch {r['epoch']}: losses {losses}")
+        check("eigen" in r and len(r["eigen"]) == 7
+              and all(v is not None and np.isfinite(v) for v in r["eigen"].values()),
+              f"epoch {r['epoch']}: eigen block {r.get('eigen')}")
+        check(r.get("warp_sampler") == "cuda", f"warp_sampler {r.get('warp_sampler')}")
+    files = set(os.listdir(save))
+    want = {"state_0000.pt", "state_0001.pt", "metrics.jsonl"} | {
+        f"{m}{e}.npz" for e in (1, 2)
+        for m in ("encoder", "decoder", "pose_encoder", "pose_decoder")}
+    check(want <= files, f"model_train wrote {sorted(files)}; missing {sorted(want - files)}")
+
+    # the encoders came from the .pth: Trainer.__init__ with the same flags
+    from monodepth_tpu_torch.config import options
+
+    trainer = Trainer(options(flags))
+    try:
+        conv1 = sd["conv1.weight"]
+        check(torch.equal(trainer.model.encoder.conv1.weight.cpu(), conv1),
+              "the encoder's conv1 is not the .pth's")
+        check(torch.equal(trainer.model.pose_encoder.conv1.weight.cpu(),
+                          torch.cat([conv1] * 2, 1) / 2),
+              "the pose encoder's conv1 is not the .pth's, tiled")
+    finally:
+        trainer.close()
+
+    done = subprocess.run([sys.executable, "-m", "monodepth_tpu_torch.model_test",
+                           "--datapath", root, "--splits", splits, "--eval_batch", "12",
+                           "--weights", f"{save}:2",
+                           "--gt_cache", os.path.join(PHASE9, "gt_cache_eval")],
+                          cwd=HERE, capture_output=True, text=True, timeout=600, env=env)
+    check(done.returncode == 0, f"model_test failed:\n{done.stderr[-3000:]}")
+    printed = [float(v) for v in done.stdout.rstrip().splitlines()[-1].split()[1:]]
+    want = list(records[-1]["eigen"].values())
+    tol = 1e-3 * max(abs(v) for v in want) + 5e-4  # + half the printed digit
+    gap = max(abs(a - b) for a, b in zip(printed, want))
+    log(f"model_test on {save}:2 {printed} vs the last in-training sweep {want}: "
+        f"max|diff| {gap:.3e} (tolerance {tol:.3e}); {card}")
+    check(len(printed) == 7 and gap <= tol, f"model_test table {printed} vs {want}")
+    log(json.dumps({"phase": "9a, model_train CLI, 2 epochs at 640x192 b12 bf16",
+                    "cli_seconds": cli_s, "model_test_vs_sweep_max_abs": gap,
+                    "train_img_per_s": [r["train"]["img_per_sec"] for r in records],
+                    "card": card}))
+    return records
+
+
+def phase_trainer(torch, ws, root, splits, train_lines, card, step_ms, loader_rates):
+    """Phase 9: the Trainer and the train CLI at the headline config on
+    phase 8's tree (48 train lines: 4 steps an epoch; 24 validation
+    lines: 2 steps). Returns the launches of K1, K1-bwd and K2 in 9c's
+    uninterrupted 2-epoch run."""
+    import dataclasses
+    import shutil
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.data import kitti
+    from monodepth_tpu_torch.training import Trainer
+    from monodepth_tpu_torch.training import step as step_module
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE9, ignore_errors=True)
+    kitti.savelines(train_lines[:VALID_LINES],
+                    os.path.join(splits, "kitti_eigen_zhou", "val_files.txt"))
+    cli_records = phase_train_cli(torch, root, splits, card)
+
+    # 9b and 9c: 2 epochs against 1 and a resume, in this process
+    cfg = Config(datapath=root, splits=splits, save_root=PHASE9, weight_init=False,
+                 num_workers=8, log_every=0)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        whole = Trainer(dataclasses.replace(cfg, epoch=2, save="whole"))
+        plain = [(ws, "warp_sample_reference"), (ws, "warp_sample_grads_reference"),
+                 (ws, "grid_vjp_reference"), (step_module, "grid_sample")]
+        wrappers = kernel_wrappers(ws)
+        for fn in wrappers.values():
+            fn.launches = 0
+        with counted(plain) as plain_calls:
+            whole.train()
+            torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        steps = 2 * len(whole.train_loader)
+        valid = 2 * len(whole.valid_loader)
+        check((steps, valid) == (8, 4), f"{steps} train and {valid} validation steps")
+        # K3 and the probes are not on this path: they must read 0
+        expected = {name: 0 for name in wrappers}
+        expected.update({"warp_sample_fwd_grads": 8 * steps,
+                         "warp_sample_bwd_grid": 8 * steps, "warp_sample_fwd": 8 * valid})
+        check(launches == expected, f"Trainer launches {launches}, expected {expected}")
+        check(not any(plain_calls.values()), f"plain versions called: {plain_calls}")
+        log(json.dumps({"path": "Trainer, 2 epochs of 4 train + 2 validation steps, "
+                                "640x192 b12 bf16", "launches": launches,
+                        "plain_version_calls": plain_calls, "card": card}))
+
+        first = Trainer(dataclasses.replace(cfg, epoch=1, save="split"))
+        first.train()
+        resumed = Trainer(dataclasses.replace(cfg, epoch=2, save="split", resume=True))
+        check(resumed.start_epoch == 1, f"resumed at epoch {resumed.start_epoch}")
+        resumed.train()
+        diff = state_diff(whole.state, resumed.state)
+        ours, theirs = _records(whole.save_dir), _records(resumed.save_dir)
+        same = [_untimed(r) for r in ours] == [_untimed(r) for r in theirs]
+        log(f"resume: 2 epochs vs 1 + resume, max|diff| over parameters, buffers and "
+            f"Adam state {diff!r}, metrics.jsonl records equal: {same}; {card}")
+        if diff != 0 or not same:
+            ops = nondeterministic_ops(torch, Trainer(dataclasses.replace(cfg, save="probe")))
+            raise SmokeFailure(f"resume is not bit-equal (max|diff| {diff}, records "
+                               f"equal {same}); ops without a deterministic form: {ops}")
+
+        # 9d: --steps_per_call 2 against 1 on the first epoch (the first
+        # record of "split": the resumed run appended the second)
+        multi = Trainer(dataclasses.replace(cfg, epoch=1, save="multi", steps_per_call=2))
+        multi.train()
+        diff_k = state_diff(first.state, multi.state)
+        same_k = [_untimed(r) for r in theirs[:1]] == \
+            [_untimed(r) for r in _records(multi.save_dir)]
+        log(f"--steps_per_call 2 vs 1: max|diff| {diff_k!r}, records equal: {same_k}; "
+            f"{card}")
+        check(diff_k == 0 and same_k, "--steps_per_call 2 differs from 1")
+        del whole, first, resumed, multi
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # 9d: the rates, with cuDNN as in phase 5a, on epochs of 24 train steps
+    # (the 48 train lines 6 times over), so that filling the loader's
+    # pipeline is a small share of an epoch: the Trainer's own loader alone
+    # over one epoch, then the Trainer's second epoch, with 8 and 4 loader
+    # threads, and with --cache_frames (decoded frames read from .npy
+    # files: no JPEG decode)
+    step_rate = 12 * 1e3 / step_ms
+    rates, loader_img = {}, {}
+    for name, extra in (("decode", {}), ("decode_4_threads", {"num_workers": 4}),
+                        ("cached_frames", {"cache_frames": True})):
+        trainer = Trainer(dataclasses.replace(cfg, epoch=2, save=f"rate_{name}", **extra),
+                          train_files=train_lines * 6)
+        check(len(trainer.train_loader) == 24, f"{len(trainer.train_loader)} steps an epoch")
+        if name.startswith("decode"):
+            t = time.perf_counter()
+            n = sum(1 for _ in trainer.train_loader.epoch(1))
+            loader_img[name] = 12 * n / (time.perf_counter() - t)
+        trainer.train()
+        rates[name] = _records(trainer.save_dir)[-1]["train"]["img_per_sec"]
+        del trainer
+    log(json.dumps({
+        "phase": "9d, rates at 640x192 b12 bf16",
+        "trainer_train_img_per_s": rates,
+        "trainer_timing": "host clock over the second epoch's 24 train steps, "
+                          "Loader -> prefetch_to_device -> train step, ended by "
+                          "torch.cuda.synchronize(); cuDNN not deterministic, as phase 5a",
+        "loader_alone_img_per_s": loader_img,
+        "loader_timing": "host clock over one epoch (24 batches) of the Trainer's own "
+                         "train loader (8 or 4 threads), no step",
+        "phase5a_step_img_per_s": step_rate,
+        "no_overlap_img_per_s": {k: 1 / (1 / step_rate + 1 / v) for k, v in loader_img.items()},
+        "phase8e_loader_img_per_s": {k: 12 * v if isinstance(v, float) else v
+                                     for k, v in loader_rates.items()},
+        "multi_trainer_img_per_s": _records(os.path.join(PHASE9, "multi"))[0]["train"]
+                                   ["img_per_sec"],
+        "cli_train_img_per_s": [r["train"]["img_per_sec"] for r in cli_records],
+        "card": card}))
+
+    # 9e: the mono convergence proof with the kernels
+    from monodepth_tpu_torch.tools import convergence_proof
+
+    ws.warp_sample_grads.launches = ws.grid_vjp.launches = 0
+    proof = convergence_proof.main(["--mode", "mono", "--use_pallas", "true",
+                                    "--tx_sign", "1"])
+    k1, bwd = ws.warp_sample_grads.launches, ws.grid_vjp.launches
+    log(json.dumps({"phase": "9e, mono convergence proof", "pass": proof["pass"],
+                    "spearman_mean": proof["rank_corr_trained_mean"],
+                    "spearman_min": proof["rank_corr_trained_min"],
+                    "loss_ratio": proof["loss_ratio"], "train_seconds": proof["train_seconds"],
+                    "k1_launches": k1, "k1_bwd_launches": bwd, "card": card}))
+    check((k1, bwd) == (8 * 600, 8 * 600), f"convergence proof K1 {k1}, K1-bwd {bwd}")
+    check(proof["pass"], f"the convergence proof failed its rule: {proof}")
+
+    span_times(torch, ws, card)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s; {card}")
     return launches
+
+
+def span_times(torch, ws, card) -> dict:
+    """Phase 9f: K1's device time (as phase 3) at 640x192 b12 on fields
+    whose vertical offsets span about 14, 40 and 60 px (a sine across
+    the width) and on +-50 px uniform noise, beside each field's
+    `dy_span`."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    B, H, W, C = 12, 192, 640, 3
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    gx = (xs + 6.0 * np.sin(xs / 17.0 + ys / 23.0)) / (W - 1) * 2 - 1
+    cases = {f"{span} px": (span / 2) * np.sin(xs / 9.0)[None] for span in (14, 40, 60)}
+    cases["+-50 px noise"] = rng.uniform(-50, 50, (B, H, W))
+    out = {}
+    for name, dy in cases.items():
+        sets = []
+        for _ in range(4):
+            gy = (ys + dy + rng.uniform(-0.5, 0.5, (B, H, W))) / (H - 1) * 2 - 1
+            grid = np.stack(np.broadcast_arrays(gx[None], gy), -1).astype(np.float32)
+            image = rng.uniform(size=(B, H, W, C)).astype(np.float32)
+            sets.append((torch.from_numpy(image).cuda(), torch.from_numpy(grid).cuda()))
+        out[name] = {"dy_span": float(ws.dy_span(sets[0][1])),
+                     "k1_ms": graph_ms(ws.warp_sample_grads, sets)}
+    ratio = out["+-50 px noise"]["k1_ms"] / out["14 px"]["k1_ms"]
+    log(json.dumps({"phase": "9f, K1 time against the warp field's dy span, 640x192 b12",
+                    "cases": out, "noise_over_14px": ratio,
+                    "timing": "CUDA-graph replay, 40 calls x 10, 4 rotating input sets",
+                    "card": card}))
+    return out
 
 
 def _device_total(event) -> float:
@@ -1563,20 +1934,24 @@ def main() -> int:
                *phase_probes(torch, dev, card)]
     entries += phase_shifted_kernels(torch, dev, ws, Config(), card, entries)
     launches = phase_probe_path(torch, card)
-    launches.update(phase_main_path(torch, ws, card))
+    main_launches, step_ms = phase_main_path(torch, ws, card)
+    launches.update(main_launches)
     k3_on = ("phase 6b: the one-card per-rank emulation of the spatial path "
              "(every rank of {spatial: 2} and {spatial: 4}, 8 warps)")
     mesh = phase_multi_gpu(torch, card)
     if mesh is not None:
         k3, k3_on = mesh
         launches.update(k3)
-    loader_launches = phase_kitti(torch, ws, card)
+    loader_launches, (root, splits, _, train_lines), rates = phase_kitti(torch, ws, card)
+    trainer_launches = phase_trainer(torch, ws, root, splits, train_lines, card, step_ms,
+                                     rates)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in SHIFTED:
             entry["launches_on"] = k3_on
         if entry["name"] in loader_launches:
             entry["launches_loader_path"] = loader_launches[entry["name"]]
+        entry["launches_trainer_path"] = trainer_launches[entry["name"]]
 
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -19,9 +19,18 @@ package. Some flags were written for the TPU build; here they mean:
   each warp, so the train-form warp kernel runs twice per warp.
 - ``--donate``: accepted and ignored. The train step updates the
   parameters and the optimizer state in place.
-- ``--steps_per_call``, ``--warp_guard`` and ``--warp_auto_swap``:
-  accepted and ignored until the training loop is ported (several steps
-  per call, and the span guard of the TPU kernel's cost).
+- ``--steps_per_call``: the Trainer runs that many train steps per call
+  on consecutive batches (``training.step.make_train_multi_step``), equal
+  to as many single steps. Run eagerly that saves nothing; the steps
+  gain from it once a call is captured in a CUDA graph (ROADMAP 6e).
+- ``--warp_guard`` and ``--warp_auto_swap``: accepted and ignored. In
+  JAX they bound the Pallas warp's cost, which grows with the warp
+  field's vertical span (a slab loop over the rows the taps reach). The
+  CUDA train-form warp (K1) gathers each pixel's taps directly: at
+  640x192 b12 on an H100 (700 W) it took 44.9 µs on a field whose 8-row
+  slabs span 15 px, 55.4 at 39 px, 57.4 at 57 px and 62.0 µs on +-50 px
+  noise (span 89 px), 1.38x the first (``chip_smoke.py`` phase 9f), so no
+  regime calls for another sampler.
 - ``--precision``: bf16 runs convolutions and batch norm in bf16 under
   ``torch.autocast``; the disparity heads, the pose average and the loss
   stack stay f32. Parameters are always f32.
@@ -83,15 +92,15 @@ class Config:
     save_root: str = "./model_save"
     use_pallas: bool = True              # use the hand-written CUDA kernels
     nchw_decoder: bool = True            # ignored
-    warp_guard: bool = False             # ignored until the training loop is ported
-    warp_auto_swap: bool = True          # ignored until the training loop is ported
+    warp_guard: bool = False             # ignored (module docstring)
+    warp_auto_swap: bool = True          # ignored (module docstring)
     warp_telemetry: bool = False         # internal (no CLI flag): report warp_span
                                          # even when the kernels are off
     pallas_interpret: bool = False       # ignored
     train_gt_metrics: bool = False
     remat: bool = False                  # recompute encoder blocks and warps
     donate: bool = False                 # ignored
-    steps_per_call: int = 1              # ignored until the training loop is ported
+    steps_per_call: int = 1              # train steps per call of the Trainer
     cache_frames: bool = False
     spatial_halo: int = 64               # halo rows of a spatial mesh's warps
     eigen_every: int = 0

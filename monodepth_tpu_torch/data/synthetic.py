@@ -2,7 +2,8 @@
 tree and planar scenes with exact self-supervised geometry.
 
 Copies of `monodepth_tpu.data.synthetic`'s `make_kitti_tree`,
-`make_split_files` and `make_planar_scenes` (with its texture helper).
+`make_split_files`, `make_planar_scenes` (with its texture helper) and
+`spearman_rank`.
 Same seed, same bytes as the JAX package's: the tree's JPEGs, scans,
 calibration and split files are equal file for file.
 """
@@ -187,3 +188,18 @@ def make_planar_scenes(num_scenes: int, height: int, width: int,
         "gt_disp": gt_disp,
         "gt_tx": gt_tx,
     }
+
+
+def spearman_rank(a: np.ndarray, b: np.ndarray) -> float:
+    """Spearman rank correlation of two flat arrays (no tie averaging:
+    the values are continuous)."""
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    ra = np.empty_like(a)
+    rb = np.empty_like(b)
+    ra[np.argsort(a)] = np.arange(a.size)
+    rb[np.argsort(b)] = np.arange(b.size)
+    ra -= ra.mean()
+    rb -= rb.mean()
+    denom = np.sqrt((ra ** 2).sum() * (rb ** 2).sum())
+    return float((ra * rb).sum() / denom) if denom else 0.0

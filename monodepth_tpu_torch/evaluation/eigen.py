@@ -25,7 +25,6 @@ import os
 from typing import Dict, List, Sequence
 
 import numpy as np
-import torch
 
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data import kitti
@@ -34,7 +33,7 @@ from monodepth_tpu_torch.data.pipeline import Loader
 from monodepth_tpu_torch.losses.metrics import METRIC_NAMES
 from monodepth_tpu_torch.models.monodepth import Monodepth
 from monodepth_tpu_torch.ops.sampling import _linear_resize_matrix
-from monodepth_tpu_torch.training.state import MODULES, build_model
+from monodepth_tpu_torch.training.state import MODULES, build_model, copy_into
 from monodepth_tpu_torch.training.step import make_infer_step
 from monodepth_tpu_torch.utils.jax_import import module_state_dict
 from monodepth_tpu_torch.utils.serialization import load_npz
@@ -240,16 +239,7 @@ def state_from_modules(cfg: Config, weights_dir: str, epoch: int,
         loaded.update(module_state_dict(name, tree["params"],
                                         tree.get("batch_stats"),
                                         cfg.num_layers, cfg.scales))
-    own = model.state_dict()
-    unknown = sorted(set(loaded) - set(own))
-    if unknown:
-        raise ValueError(f"weights hold entries the model lacks: {unknown[:5]}")
-    with torch.no_grad():
-        for key, value in loaded.items():
-            if own[key].shape != value.shape:
-                raise ValueError(f"{key}: weights {tuple(value.shape)}, "
-                                 f"model {tuple(own[key].shape)}")
-            own[key].copy_(value)
+    copy_into(model, loaded)
     return model
 
 

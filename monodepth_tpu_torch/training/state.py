@@ -46,8 +46,8 @@ def set_precision(cfg: Config) -> None:
 def build_model(cfg: Config, device=None) -> Monodepth:
     """The configured `Monodepth`, initialized from `cfg.seed`, in eval
     mode on `device` (default: the card). Parameters are f32 whatever
-    the precision; `cfg.weight_init` (ImageNet weights) is not read here:
-    converted checkpoints load with `load_state_dict`."""
+    the precision. `cfg.weight_init` is read by the Trainer, which loads
+    the ImageNet encoder into this model (`training.loop.load_pretrained`)."""
     device = resolve_device(device)
     set_precision(cfg)
     model = Monodepth(num_layers=cfg.num_layers, scales=cfg.scales,
@@ -55,6 +55,22 @@ def build_model(cfg: Config, device=None) -> Monodepth:
                       pose_frames=cfg.pose_frames, remat=cfg.remat)
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
     return model.to(device).eval()
+
+
+def copy_into(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+    """Copy `tensors` (state_dict names, any subset) into `model`'s
+    parameters and buffers, on their device and in their dtype. Raises on
+    a name the model lacks or a shape that differs."""
+    own = model.state_dict()
+    unknown = sorted(set(tensors) - set(own))
+    if unknown:
+        raise ValueError(f"weights hold entries the model lacks: {unknown[:5]}")
+    with torch.no_grad():
+        for key, value in tensors.items():
+            if own[key].shape != value.shape:
+                raise ValueError(f"{key}: weights {tuple(value.shape)}, "
+                                 f"model {tuple(own[key].shape)}")
+            own[key].copy_(value)
 
 
 def module_grads(model: Monodepth) -> Dict[str, torch.Tensor]:

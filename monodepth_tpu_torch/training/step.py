@@ -43,7 +43,7 @@ steps compute what the single-device step computes on the global batch:
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -402,6 +402,24 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
         return _metrics(loss, out, batch, cfg.train_gt_metrics, mesh)
 
     return train_step
+
+
+def make_train_multi_step(model: Monodepth, cfg: Config, device=None):
+    """K train steps per call (`--steps_per_call`; JAX: `lax.scan` of the
+    step body over a [K, B, ...] superbatch). Returns
+    multi_step(state, batches) -> {name: [K] tensor}: `batches` is a
+    sequence of K consecutive batches, and the K steps run in order, each
+    as `make_train_step`'s (same noise keys, same updates), so K calls of
+    that step give the same state and metrics. The batches are not
+    stacked: eagerly that would only add a copy. Capturing the K steps in
+    a CUDA graph, which needs them in static buffers, is later work."""
+    train_step = make_train_step(model, cfg, device)
+
+    def multi_step(state: TrainState, batches: Sequence[Mapping[str, Any]]):
+        metrics = [train_step(state, batch) for batch in batches]
+        return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+
+    return multi_step
 
 
 def make_eval_step(model: Monodepth, cfg: Config, device=None,

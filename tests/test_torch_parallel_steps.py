@@ -33,21 +33,24 @@ MESHES = {"data2": (["--data", "2", "--spatial", "1"], []),
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{mesh: [report of each rank]}; the three runs go at once."""
+    """{mesh: [report of each rank]}; the three runs go at once. Their 8
+    ranks take ~50 s on an idle 8-core host and over 200 s beside five
+    other test workers, so the deadline, a guard against a hung rank, is
+    600 s."""
     tmp = tmp_path_factory.mktemp("steps")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     procs = {}
     for name, (mesh, extra) in MESHES.items():
         cmd = [sys.executable, "-m", "monodepth_tpu_torch.parallel.run_steps", *mesh,
                "--device", "cpu", "--spawn", "--reference", "--f64", "--steps", "2",
-               "--timeout", "60", "--deadline", "200", "--out", str(tmp / name),
+               "--timeout", "60", "--deadline", "600", "--out", str(tmp / name),
                *CONFIG, *extra]
         procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
     out = {}
     try:
         for name, proc in procs.items():
-            _, err = proc.communicate(timeout=240)
+            _, err = proc.communicate(timeout=660)
             assert proc.returncode == 0, (name, err[-3000:])
             world = len(list((tmp / name).glob("rank*.json")))
             out[name] = [json.loads((tmp / name / f"rank{r}.json").read_text())

@@ -136,7 +136,9 @@ def test_build_model_hands_remat_to_both_encoders():
 def mesh_runs(tmp_path_factory):
     """{remat: rank 0's report} of `run_steps` on a {data: 2, spatial: 2}
     mesh in f64 (4 gloo processes each, both runs at once), with and
-    without --remat, each with the one-device reference."""
+    without --remat, each with the one-device reference. The deadline is
+    a guard against a hung rank, wide enough for a host shared with five
+    other test workers (as `tests/test_torch_parallel_steps.py`)."""
     tmp = tmp_path_factory.mktemp("remat_mesh")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     procs = {}
@@ -145,14 +147,14 @@ def mesh_runs(tmp_path_factory):
         cmd = [sys.executable, "-m", "monodepth_tpu_torch.parallel.run_steps",
                "--data", "2", "--spatial", "2", "--device", "cpu", "--spawn",
                "--reference", "--f64", "--steps", "2", "--timeout", "60",
-               "--deadline", "200", "--out", str(out), "--height", "32", "--width", "128",
+               "--deadline", "600", "--out", str(out), "--height", "32", "--width", "128",
                "--batch", "4", "--precision", "f32", "--remat", str(remat).lower()]
         procs[remat] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                          stderr=subprocess.PIPE, text=True), out)
     reports = {}
     try:
         for remat, (proc, out) in procs.items():
-            _, err = proc.communicate(timeout=240)
+            _, err = proc.communicate(timeout=660)
             assert proc.returncode == 0, (remat, err[-3000:])
             reports[remat] = json.loads((out / "rank0.json").read_text())
     finally:
