@@ -137,13 +137,33 @@ Phases, each fatal on failure:
       with 4800 launches of K1 and of K1-bwd;
    f. K1's device time (as phase 3) on fields whose vertical offsets span
       about 14, 40 and 60 px and on +-50 px noise;
-10. the `kernels` JSON line, then the last line
+10. the other pose wirings and stereo at the headline config (640x192,
+   b12, bf16, ResNet-18 at full width and depth, weights from
+   `cfg.seed`, `make_planar_scenes` frames; for "s" the +1 view again
+   with its seeded baseline as `stereo_T`):
+   a. for `shared`, `posecnn`, `separate` with `pose_frames="all"` and
+      mono+stereo `separate` (frames 0, -1, 1, "s"): one train step with
+      the kernels and one from a deep copy with the plain warp (loss rtol
+      1e-5, per-module gradient rel-L2 <= 1e-3, cuDNN deterministic for
+      the pair), K1 and K1-bwd launched once per warp (8, or 12 with
+      "s") and no plain version called; one eval step, K2 8 or 12
+      launches, loss rel <= 1e-5 against the plain warp;
+   b. the mono+stereo train step's host ms (median of 10) and device-busy
+      ms (torch.profiler) beside phase 5a's mono step;
+   c. one ResNet-50 `separate` train step with the kernels: finite loss,
+      8 K1 and 8 K1-bwd launches, its host ms;
+   d. the stereo convergence proof (`tools/convergence_proof.py --mode
+      stereo`, 600 steps at 96x320 b8, `--use_pallas true`): it passes its
+      rule, with 2400 launches of K1 and of K1-bwd;
+11. the `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    K3's launches there are those of phase 7's largest mesh in bf16 (rank
    0) when phase 7 ran, else phase 6b's one-card per-rank emulation;
    "launches_on" says which. K1, K1-bwd and K2 also carry their launches
-   on phase 8c's loader path ("launches_loader_path") and every kernel
-   its launches in phase 9c's Trainer run ("launches_trainer_path").
+   on phase 8c's loader path ("launches_loader_path"), and every kernel
+   its launches in phase 9c's Trainer run ("launches_trainer_path") and
+   in phase 10a's kernel steps of the four wirings
+   ("launches_wirings_path").
 """
 
 from __future__ import annotations
@@ -752,7 +772,7 @@ def phase_probe_path(torch, card) -> dict:
 
 def phase_train(torch, ws, cfg, model, state, batches, card):
     """Phase 5a. Returns the launches of K1 and K1-bwd in the 3 train
-    steps, and the step's ms."""
+    steps, the step's host ms and its device-busy ms."""
     import numpy as np
 
     from monodepth_tpu_torch.training.state import MODULES, module_grads
@@ -810,12 +830,14 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
                     "train_step_ms": step_ms,
                     "timing": "host clock around synchronize, median of 10",
                     "card": card}))
-    log(json.dumps({"train_step_profile": profile_steps(
+    profile = profile_steps(
         torch, lambda i: train_step(state, batches[i % 3]),
         {"k1": "warp_sample_fwd_grads_kernel", "k1_bwd": "warp_sample_bwd_grid_kernel"},
         ("train_step/forward", "train_step/backward", "train_step/optimizer",
-         "WarpSampleBackward")), "card": card}))
-    return {"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd}, step_ms
+         "WarpSampleBackward"))
+    log(json.dumps({"train_step_profile": profile, "card": card}))
+    return ({"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd}, step_ms,
+            profile["device_busy_ms_per_step"])
 
 
 def phase_eval(torch, ws, cfg, model, state, batches, card):
@@ -1184,7 +1206,8 @@ def phase_multi_gpu(torch, card):
 
 def phase_main_path(torch, ws, card):
     """Phase 5: train, then eval and infer, on one model. Returns the
-    launches of each kernel on its path, and the train step's ms."""
+    launches of each kernel on its path, and the train step's host ms and
+    device-busy ms."""
     from monodepth_tpu_torch.config import Config
     from monodepth_tpu_torch.data.synthetic import make_planar_scenes
     from monodepth_tpu_torch.training.state import build_model, create_state
@@ -1199,10 +1222,10 @@ def phase_main_path(torch, ws, card):
     state = create_state(cfg, model, steps_per_epoch=100)
     log(f"main path setup: {time.perf_counter() - t0:.1f} s "
         f"(scenes + model, {sum(p.numel() for p in model.parameters())} params)")
-    launches, step_ms = phase_train(torch, ws, cfg, model, state, batches, card)
+    launches, step_ms, busy_ms = phase_train(torch, ws, cfg, model, state, batches, card)
     launches["warp_sample_fwd"] = phase_eval(torch, ws, cfg, model, state, batches, card)
     launches.update(phase_spatial_path(torch, ws, cfg, state, batches[0], card))
-    return launches, step_ms
+    return launches, step_ms, busy_ms
 
 
 PHASE8 = os.path.join(HERE, "build", "phase8")
@@ -1847,6 +1870,174 @@ def span_times(torch, ws, card) -> dict:
     return out
 
 
+WIRINGS = {  # phase 10a: name -> the Config fields of the wiring
+    "shared": {"pose_type": "shared"},
+    "posecnn": {"pose_type": "posecnn"},
+    "separate, pose_frames all": {"pose_frames": "all"},
+    "separate, mono+stereo (0, -1, 1, s)": {"frame_ids": (0, -1, 1, "s")},
+}
+
+
+def wiring_batches(cfg, n: int, seed: int = 0) -> list:
+    """`n` batches of `make_planar_scenes` at `cfg`'s shape; with "s", the
+    +1 view again as the stereo frame, with its seeded ground-truth
+    baseline as `stereo_T` (identity, the scene's `gt_tx` at [0, 3])."""
+    import numpy as np
+
+    from monodepth_tpu_torch.data.synthetic import make_planar_scenes
+
+    B = cfg.batch
+    scenes = make_planar_scenes(n * B, cfg.height, cfg.width, seed=seed)
+    keys = ["frames", "jitter", "K", "inv_K"]
+    if "s" in cfg.frame_ids:
+        scenes["frames"] = scenes["frames"][:, [0, 1, 2, 2]]
+        stereo_T = np.tile(np.eye(4, dtype=np.float32), (n * B, 1, 1))
+        stereo_T[:, 0, 3] = scenes["gt_tx"]
+        scenes["stereo_T"] = stereo_T
+        keys.append("stereo_T")
+    return [{k: scenes[k][i * B:(i + 1) * B] for k in keys} for i in range(n)]
+
+
+def phase_wirings(torch, ws, card, step5a_ms, busy5a_ms) -> dict:
+    """Phase 10: the other pose wirings and mono+stereo at the headline
+    config (640x192 b12 bf16, ResNet-18, full width and depth, seeded).
+    Returns every kernel's launches in 10a's kernel runs (counts set to 0
+    just before, read just after; the plain-warp twins launch none)."""
+    import numpy as np
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.training import step as step_module
+    from monodepth_tpu_torch.training.state import build_model, create_state, module_grads
+    from monodepth_tpu_torch.training.step import make_eval_step, make_train_step
+
+    t0 = time.perf_counter()
+    wrappers = kernel_wrappers(ws)
+    plain = [(ws, "warp_sample_reference"), (ws, "warp_sample_grads_reference"),
+             (ws, "grid_vjp_reference"), (step_module, "grid_sample")]
+    for fn in wrappers.values():
+        fn.launches = 0
+    stereo = None
+    for name, fields in WIRINGS.items():
+        cfg = Config(**fields).validate()
+        warps = len(cfg.source_frame_ids) * len(cfg.scales)
+        batches = wiring_batches(cfg, 2)
+        model = build_model(cfg)
+        state = create_state(cfg, model, steps_per_epoch=100)
+        train_step = make_train_step(model, cfg)
+        eval_step = make_eval_step(model, cfg)
+        # 10a: one train step from one state with the kernels and, from a
+        # deep copy, with the plain warp (forward and backward)
+        torch.backends.cudnn.deterministic = True
+        try:
+            twin = copy.deepcopy(state)
+            plain_step = make_train_step(
+                twin.model, cfg, sampler=lambda im, gr: ws.WarpSample.apply(im, gr, True))
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            with counted(plain) as train_calls:
+                loss_k = float(train_step(state, batches[0])["loss"])
+                torch.cuda.synchronize()
+            train_launches = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+            loss_p = float(plain_step(twin, batches[0])["loss"])
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        gk, gp = module_grads(model), module_grads(twin.model)
+        grad_rel = {m: float((gk[m] - gp[m]).norm() / gp[m].norm()) for m in gk}
+        del twin, plain_step
+        # one eval step with the kernels, and with the plain warp
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        with counted(plain) as eval_calls:
+            eval_k = float(eval_step(state, batches[1], 0)["loss"])
+            torch.cuda.synchronize()
+        eval_launches = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        eval_p = float(make_eval_step(model, cfg, sampler=ws.warp_sample_reference)(
+            state, batches[1], 0)["loss"])
+        eval_rel = abs(eval_k - eval_p) / abs(eval_p)
+        log(json.dumps({"phase": f"10a, {name}, 640x192 b12 bf16", "warps_per_step": warps,
+                        "train_loss_kernel": loss_k, "train_loss_plain": loss_p,
+                        "train_loss_rel": rel, "grad_rel_l2": grad_rel,
+                        "eval_loss_kernel": eval_k, "eval_loss_plain": eval_p,
+                        "eval_loss_rel": eval_rel,
+                        "train_launches": {k: v for k, v in train_launches.items() if v},
+                        "eval_launches": {k: v for k, v in eval_launches.items() if v},
+                        "plain_version_calls": {**train_calls, **eval_calls},
+                        "card": card}))
+        expected = {k: 0 for k in wrappers}
+        check(train_launches == dict(expected, warp_sample_fwd_grads=warps,
+                                     warp_sample_bwd_grid=warps),
+              f"{name}: train step launches {train_launches}, expected {warps} of K1 "
+              "and of K1-bwd")
+        check(eval_launches == dict(expected, warp_sample_fwd=warps),
+              f"{name}: eval step launches {eval_launches}, expected {warps} of K2")
+        check(not any(train_calls.values()) and not any(eval_calls.values()),
+              f"{name}: plain versions called: {train_calls} {eval_calls}")
+        check(np.isfinite([loss_k, eval_k]).all(), f"{name}: non-finite loss")
+        check(rel <= 1e-5, f"{name}: kernel vs plain train loss rel {rel} > 1e-5")
+        check(all(v <= 1e-3 for v in grad_rel.values()),
+              f"{name}: kernel vs plain grad rel-L2 {grad_rel} > 1e-3")
+        check(eval_rel <= 1e-5, f"{name}: kernel vs plain eval loss rel {eval_rel} > 1e-5")
+        if "s" in cfg.frame_ids:
+            stereo = (train_step, state, batches)
+        else:
+            del model, state, train_step, eval_step
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+
+    # 10b: the mono+stereo train step's time beside phase 5a's mono step
+    train_step, state, batches = stereo
+    stereo_ms = host_ms(torch, lambda i: train_step(state, batches[i % 2]))
+    profile = profile_steps(
+        torch, lambda i: train_step(state, batches[i % 2]),
+        {"k1": "warp_sample_fwd_grads_kernel", "k1_bwd": "warp_sample_bwd_grid_kernel"})
+    log(json.dumps({"phase": "10b, mono+stereo train step, ResNet-18 separate "
+                             "(0, -1, 1, s) 640x192 b12 bf16",
+                    "train_step_ms": stereo_ms, "phase5a_mono_train_step_ms": step5a_ms,
+                    "device_busy_ms_per_step": profile["device_busy_ms_per_step"],
+                    "phase5a_mono_device_busy_ms_per_step": busy5a_ms,
+                    "profile": profile,
+                    "timing": "host clock around synchronize, median of 10; busy from "
+                              "torch.profiler over 3 steps",
+                    "card": card}))
+    del stereo, train_step, state, batches
+
+    # 10c: one ResNet-50 train step with the kernels
+    cfg = Config(num_layers=50).validate()
+    model = build_model(cfg)
+    state = create_state(cfg, model, steps_per_epoch=100)
+    train_step = make_train_step(model, cfg)
+    batches = wiring_batches(cfg, 2, seed=1)
+    ws.warp_sample_grads.launches = ws.grid_vjp.launches = 0
+    loss = float(train_step(state, batches[0])["loss"])
+    k1, bwd = ws.warp_sample_grads.launches, ws.grid_vjp.launches
+    r50_ms = host_ms(torch, lambda i: train_step(state, batches[i % 2]), n=5)
+    log(json.dumps({"phase": "10c, ResNet-50 separate train step, 640x192 b12 bf16",
+                    "loss": loss, "k1_launches": k1, "k1_bwd_launches": bwd,
+                    "params": sum(p.numel() for p in model.parameters()),
+                    "train_step_ms": r50_ms,
+                    "timing": "host clock around synchronize, median of 5",
+                    "card": card}))
+    check(np.isfinite(loss), f"ResNet-50 train loss {loss}")
+    check((k1, bwd) == (8, 8), f"ResNet-50 train step K1 {k1}, K1-bwd {bwd}")
+    del model, state, train_step
+
+    # 10d: the stereo convergence proof with the kernels
+    from monodepth_tpu_torch.tools import convergence_proof
+
+    ws.warp_sample_grads.launches = ws.grid_vjp.launches = 0
+    proof = convergence_proof.main(["--mode", "stereo", "--use_pallas", "true"])
+    k1, bwd = ws.warp_sample_grads.launches, ws.grid_vjp.launches
+    log(json.dumps({"phase": "10d, stereo convergence proof", "pass": proof["pass"],
+                    "spearman_mean": proof["rank_corr_trained_mean"],
+                    "spearman_min": proof["rank_corr_trained_min"],
+                    "spearman_untrained_mean": proof["rank_corr_untrained_mean"],
+                    "loss_ratio": proof["loss_ratio"], "train_seconds": proof["train_seconds"],
+                    "k1_launches": k1, "k1_bwd_launches": bwd, "card": card}))
+    check((k1, bwd) == (4 * 600, 4 * 600), f"stereo proof K1 {k1}, K1-bwd {bwd}")
+    check(proof["pass"], f"the stereo convergence proof failed its rule: {proof}")
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s; {card}")
+    return launches
+
+
 def _device_total(event) -> float:
     """Device µs of the kernels launched under a CPU-side event."""
     for name in ("device_time_total", "cuda_time_total"):
@@ -1934,7 +2125,7 @@ def main() -> int:
                *phase_probes(torch, dev, card)]
     entries += phase_shifted_kernels(torch, dev, ws, Config(), card, entries)
     launches = phase_probe_path(torch, card)
-    main_launches, step_ms = phase_main_path(torch, ws, card)
+    main_launches, step_ms, busy_ms = phase_main_path(torch, ws, card)
     launches.update(main_launches)
     k3_on = ("phase 6b: the one-card per-rank emulation of the spatial path "
              "(every rank of {spatial: 2} and {spatial: 4}, 8 warps)")
@@ -1945,6 +2136,7 @@ def main() -> int:
     loader_launches, (root, splits, _, train_lines), rates = phase_kitti(torch, ws, card)
     trainer_launches = phase_trainer(torch, ws, root, splits, train_lines, card, step_ms,
                                      rates)
+    wirings_launches = phase_wirings(torch, ws, card, step_ms, busy_ms)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in SHIFTED:
@@ -1952,6 +2144,7 @@ def main() -> int:
         if entry["name"] in loader_launches:
             entry["launches_loader_path"] = loader_launches[entry["name"]]
         entry["launches_trainer_path"] = trainer_launches[entry["name"]]
+        entry["launches_wirings_path"] = wirings_launches[entry["name"]]
 
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -33,7 +33,7 @@ from monodepth_tpu_torch.data.pipeline import Loader
 from monodepth_tpu_torch.losses.metrics import METRIC_NAMES
 from monodepth_tpu_torch.models.monodepth import Monodepth
 from monodepth_tpu_torch.ops.sampling import _linear_resize_matrix
-from monodepth_tpu_torch.training.state import MODULES, build_model, copy_into
+from monodepth_tpu_torch.training.state import build_model, copy_into, model_modules
 from monodepth_tpu_torch.training.step import make_infer_step
 from monodepth_tpu_torch.utils.jax_import import module_state_dict
 from monodepth_tpu_torch.utils.serialization import load_npz
@@ -227,7 +227,7 @@ def state_from_modules(cfg: Config, weights_dir: str, epoch: int,
     export without batch_stats leaves that module's BN buffers at init."""
     model = build_model(cfg, device)
     loaded = {}
-    for name in MODULES:
+    for name in model_modules(model):
         path = os.path.join(weights_dir, f"{name}{epoch}.npz")
         if not os.path.exists(path):
             if name in ("encoder", "decoder"):

@@ -6,7 +6,11 @@
 
 The flags are those of the JAX package's `model_train.py`
 (`monodepth_tpu_torch/config.py`), plus `--device` (default: the card;
-`cpu` runs the plain PyTorch path). Without a card and without
+`cpu` runs the plain PyTorch path). Every pose wiring trains:
+`--pose_type separate|shared|posecnn`, `--pose_frames 2|all`, and
+`--dataset kitti_stereo` for stereo (frames "0 s") or mono+stereo (the
+default frames plus "s", which `Config.validate` adds); the loader then
+feeds each batch's `stereo_T`. Without a card and without
 `--device cpu` it raises. The run writes under `<save_root>/<save>/`:
 `state_<epoch>.pt`, the module exports `<module><epoch + 1>.npz` (which
 `python -m monodepth_tpu_torch.model_test --weights <dir>:<epoch>`

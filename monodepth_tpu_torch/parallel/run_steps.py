@@ -3,6 +3,7 @@
     # one process per rank, started here (CPU with gloo, or one card each)
     python -m monodepth_tpu_torch.parallel.run_steps --data 2 --spatial 2 \\
         --device cpu --spawn --out OUT [--steps 2] [--reference [--save-grads]] [--f64] \\
+        [--threads N] \\
         [config flags, e.g. --height 32 --width 128 --batch 4]
     # or under torchrun, one process per card
     torchrun --nproc_per_node 4 -m monodepth_tpu_torch.parallel.run_steps \\
@@ -19,13 +20,14 @@ norms after the first step, a parameter checksum, the launches of K1, K2,
 both forms of K3 and K1-bwd (`grid_vjp`), and the spatial warps on slabs
 and fallbacks.
 
-With `--reference`, rank 0 then runs the same steps on one device on the
-global batches, and the eval step from the mesh's trained state, and adds
-the differences to its report: loss and per-module gradient (rel-L2 after
-the first step), parameters and batch-norm running statistics (max abs
-after the last step), eval loss and depth metrics. `--f64` runs the model
-and the batches in float64 (the CPU tests), where those differences are
-rounding only. `--save-grads` keeps both runs' first-step gradients in
+With `--reference`, once every rank has left the process group, rank 0
+runs the same steps on one device on the global batches, and the eval
+step from the mesh's trained state, and adds the differences and the
+seconds they took (`reference_seconds`) to its report: loss and
+per-module gradient (rel-L2 after the first step), parameters and
+batch-norm running statistics (max abs after the last step), eval loss
+and depth metrics. `--f64` runs the model and the batches in float64
+(the CPU tests), where those differences are rounding only. `--save-grads` keeps both runs' first-step gradients in
 OUT/grads.pt, so that runs in two precisions can be compared.
 """
 
@@ -57,7 +59,6 @@ from monodepth_tpu_torch.parallel.mesh import (
     warm_collectives,
 )
 from monodepth_tpu_torch.training.state import (
-    MODULES,
     build_model,
     create_state,
     module_grads,
@@ -182,7 +183,7 @@ def _reference(cfg: Config, args, batches, mesh_report: dict,
         "losses": losses,
         "loss_rel": [_rel(a, b) for a, b in zip(mesh_report["losses"], losses)],
         "grad_rel_l2": {m: float((mesh_grads[m] - grads[m]).norm() / grads[m].norm())
-                        for m in MODULES},
+                        for m in grads},
         "param_max_abs": params,
         "bn_stats_max_abs": stats,
         "eval": ev,
@@ -194,6 +195,8 @@ def _reference(cfg: Config, args, batches, mesh_report: dict,
 def run_rank(args) -> None:
     """One rank's run (module docstring); writes OUT/rank<r>.json."""
     cfg = options(args.config)
+    if args.threads:
+        torch.set_num_threads(args.threads)
     init_distributed(args.device, args.timeout)
     mesh = make_mesh(args.data, args.spatial, args.device)
     world = warm_collectives(mesh)
@@ -236,17 +239,23 @@ def run_rank(args) -> None:
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    # every rank leaves the group before rank 0's reference, which takes no
+    # collective: no rank waits on one while it runs
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
     if args.reference and mesh.rank == 0:
+        t0 = time.perf_counter()
         one_device, report["reference"] = _reference(
             cfg, args, batches, report, grads, model, device, initial)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        report["reference_seconds"] = time.perf_counter() - t0
         if args.save_grads:
             torch.save({k: {m: g.float().cpu() for m, g in v.items()}
                         for k, v in (("mesh", grads), ("one_device", one_device))},
                        out / "grads.pt")
     (out / f"rank{mesh.rank}.json").write_text(json.dumps(report, indent=1))
-    if dist.is_initialized():
-        dist.barrier()
-        dist.destroy_process_group()
 
 
 def parse(argv: Sequence[str] | None = None):
@@ -269,6 +278,9 @@ def parse(argv: Sequence[str] | None = None):
                    help="seconds a collective may wait")
     p.add_argument("--deadline", type=float, default=1800.0,
                    help="seconds the spawned ranks may take in all")
+    p.add_argument("--threads", type=int, default=0,
+                   help="intra-op threads of each rank (0: cpu_count // ranks "
+                        "under --spawn, torch's default otherwise)")
     args, config = p.parse_known_args(argv)
     args.config = config
     return args

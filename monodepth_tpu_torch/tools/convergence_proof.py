@@ -2,22 +2,26 @@
 geometry, check that the loss drops and that the predicted depth
 rank-correlates with the ground truth.
 
-    python -m monodepth_tpu_torch.tools.convergence_proof --mode mono \
+    python -m monodepth_tpu_torch.tools.convergence_proof --mode stereo \
         --steps 600 --use_pallas true
 
-Counterpart of the JAX package's `tools/convergence_proof.py`, mono mode
-(frames (0, -1, 1), the pose net in the loop): `make_planar_scenes`
-renders scenes whose photometric minimum sits at the ground-truth
-inverse-depth plane, so no KITTI data is needed. Depth is identifiable
-only up to a global scale, so the depth check is Spearman's rank
-correlation per scene. The learning rate is constant over the run
-(`steps_per_epoch=steps`: the StepLR decay, made for KITTI's 26k-image
-epochs, never fires). With `--use_pallas true` on the card the 8 warps
-of a step run the CUDA kernels (K1, K1-bwd). Stereo mode needs the
-stereo wiring of the port (ROADMAP 6d) and raises; the JAX tool's
-diagnostic flags `--frames` and `--augment` are left out. `--device`
-(default: the card; `cpu` runs the plain PyTorch path) is added. The exit
-code is 0 when the run passes the tool's rule (in `main`).
+Counterpart of the JAX package's `tools/convergence_proof.py`:
+`make_planar_scenes` renders scenes whose photometric minimum sits at the
+ground-truth inverse-depth plane, so no KITTI data is needed. Two modes,
+as there:
+- stereo (the default): frames (0, "s"), the +tx view fed as the "s"
+  frame with its ground-truth fixed-baseline transform as `stereo_T`
+  (identity with the scene's `gt_tx` at [0, 3]): the pose is known and
+  depth must emerge through the warp; 2 warps per scale;
+- mono: frames (0, -1, 1) with the pose net in the loop; 8 warps a step.
+Depth is identifiable only up to a global scale, so the depth check is
+Spearman's rank correlation per scene. The learning rate is constant over
+the run (`steps_per_epoch=steps`: the StepLR decay, made for KITTI's
+26k-image epochs, never fires). With `--use_pallas true` on the card the
+warps run the CUDA kernels (K1, K1-bwd). The JAX tool's diagnostic flags
+`--frames` and `--augment` are left out. `--device` (default: the card;
+`cpu` runs the plain PyTorch path) is added. The exit code is 0 when the
+run passes the tool's rule (in `main`).
 """
 
 from __future__ import annotations
@@ -43,9 +47,11 @@ def main(argv=None) -> dict:
     from monodepth_tpu_torch.training.step import make_infer_step, make_train_step
 
     p = argparse.ArgumentParser(description="hermetic convergence proof")
-    p.add_argument("--mode", default="mono", choices=["stereo", "mono"],
-                   help="mono: frames (0, -1, 1) with the pose net in the loop. "
-                        "stereo needs the port's stereo wiring (ROADMAP 6d)")
+    p.add_argument("--mode", default="stereo", choices=["stereo", "mono"],
+                   help="stereo: frames (0, 's') with the ground-truth baseline "
+                        "transform as stereo_T: the pose is known, depth must "
+                        "emerge through the warp. mono: frames (0, -1, 1) with "
+                        "the pose net in the loop")
     p.add_argument("--steps", default=600, type=int)
     p.add_argument("--height", default=96, type=int)
     p.add_argument("--width", default=320, type=int)
@@ -66,11 +72,8 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default="", type=str, help="write a markdown report here")
     args = p.parse_args(argv)
 
-    if args.mode == "stereo":
-        raise NotImplementedError("--mode stereo needs the stereo wiring of the "
-                                  "port (ROADMAP 6d); this tool runs --mode mono")
     device = resolve_device(args.device)
-    frame_ids = (0, -1, 1)
+    frame_ids = (0, "s") if args.mode == "stereo" else (0, -1, 1)
     precision = args.precision or ("bf16" if device.type == "cuda" else "f32")
     cfg = Config(height=args.height, width=args.width, batch=args.batch,
                  learning_rate=args.learning_rate, seed=args.seed,
@@ -83,6 +86,15 @@ def main(argv=None) -> dict:
 
     scenes = make_planar_scenes(args.scenes, args.height, args.width,
                                 seed=args.seed, tx_sign=args.tx_sign)
+    batch_keys = ("frames", "jitter", "K", "inv_K")
+    if args.mode == "stereo":
+        # slot 2 is the +tx view: the "s" frame, with its ground-truth
+        # fixed-baseline transform (the step warps "s" by stereo_T as given)
+        scenes["frames"] = scenes["frames"][:, [0, 2]]
+        stereo_T = np.tile(np.eye(4, dtype=np.float32), (args.scenes, 1, 1))
+        stereo_T[:, 0, 3] = scenes["gt_tx"]
+        scenes["stereo_T"] = stereo_T
+        batch_keys += ("stereo_T",)
     model = build_model(cfg, device)
     # a constant learning rate: steps_per_epoch=steps keeps the StepLR decay
     # from firing
@@ -92,7 +104,7 @@ def main(argv=None) -> dict:
 
     def batch_at(order, start):
         idx = order[start:start + args.batch]
-        return {k: scenes[k][idx] for k in ("frames", "jitter", "K", "inv_K")}
+        return {k: scenes[k][idx] for k in batch_keys}
 
     def depth_corrs():
         """Per-scene Spearman(predicted disparity, GT disparity), interior."""

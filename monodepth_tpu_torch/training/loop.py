@@ -65,9 +65,11 @@ def load_pretrained(cfg: Config, model: Monodepth) -> Optional[str]:
     `resnet<N>.npz` (the JAX package's layout) or a torchvision
     `resnet<N>.pth` (its `fc.*` dropped) from `cfg.pretrained_dir`. For
     the `separate` pose wiring the pose encoder gets the same weights with
-    conv1 tiled over its input images and divided by their count
-    (depth_encoder.py:59). Returns the path read, or None (weight_init
-    off, or no file: the random init stays, with a message)."""
+    conv1 tiled over its `num_pose_frames` input images and divided by
+    their count (depth_encoder.py:59); `shared` and `posecnn` have no pose
+    encoder, and no pose net loads pretrained weights (JAX's
+    `load_pretrained`). Returns the path read, or None (weight_init off,
+    or no file: the random init stays, with a message)."""
     if not cfg.weight_init:
         return None
     base = os.path.join(cfg.pretrained_dir, f"resnet{cfg.num_layers}")

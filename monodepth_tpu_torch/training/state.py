@@ -17,9 +17,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from monodepth_tpu_torch.config import Config
-from monodepth_tpu_torch.models.monodepth import Monodepth
+from monodepth_tpu_torch.models.monodepth import MODULES, Monodepth, model_modules
 
-MODULES = ("encoder", "decoder", "pose_encoder", "pose_decoder")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -74,11 +73,14 @@ def copy_into(model: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
 
 
 def module_grads(model: Monodepth) -> Dict[str, torch.Tensor]:
-    """{top-level module (`MODULES`): its parameters' gradients, flattened,
-    f64}, for comparing the gradients of two steps module by module."""
-    return {m: torch.cat([p.grad.detach().double().flatten()
+    """{top-level module (`model_modules`): its parameters' gradients,
+    flattened, f64}, for comparing the gradients of two steps module by
+    module. A parameter the loss did not reach (the pose net of a run
+    with no temporal source) counts as a zero gradient, as JAX's."""
+    return {m: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)
+                           ).detach().double().flatten()
                           for n, p in model.named_parameters()
-                          if n.split(".")[0] == m]) for m in MODULES}
+                          if n.split(".")[0] == m]) for m in model_modules(model)}
 
 
 Schedule = Callable[[int], float]

@@ -9,14 +9,18 @@ there (reference: model_tool/processor.py:33-218):
 - disparity at every scale is upsampled bilinearly (align_corners=False)
   to full resolution before depth conversion and warping, with scale-0
   intrinsics;
-- the 4x4 transforms of the `separate` wiring do not depend on depth, so
-  there is one per source frame, outside the scale loop.
+- the 4x4 transforms of the `separate` and `shared` wirings do not
+  depend on depth, so there is one per temporal source, outside the scale
+  loop; `posecnn` scales each translation by the mean inverse depth of
+  the scale's upsampled depth, so its transforms are built per scale
+  (and differentiated through that depth); the stereo frame "s" warps
+  with the batch's `stereo_T`.
 
 Under --precision bf16 only the network runs under `torch.autocast`;
 disparities and poses leave it in f32 and the geometry, warps and loss
-stay f32 (or wider, following the inputs). The 8 warps of a step
-(2 sources x 4 scales) go through the CUDA kernels when `cfg.use_pallas`
-is on: `warp_sample` in the eval step, `WarpSample` (forward with the tap
+stay f32 (or wider, following the inputs). The warps of a step (one per
+source frame and scale: 8 for frames (0, -1, 1) and 4 scales, 12 with
+"s") go through the CUDA kernels when `cfg.use_pallas` is on: `warp_sample` in the eval step, `WarpSample` (forward with the tap
 differences, gradient with respect to the grid) in the train step.
 Otherwise they are the plain `grid_sample`, differentiated by autograd.
 Under --remat each warp (whichever sampler) is checkpointed as in JAX:
@@ -99,7 +103,8 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
     """Forward the model and synthesize every (scale, source) warp.
 
     batch: frames uint8 [B, F, H, W, 3], jitter [B, 5], K and inv_K
-    [B, 4, 4], on the model's device. `train` only picks the default warp;
+    [B, 4, 4] and, with the stereo frame, stereo_T [B, 4, 4], on the
+    model's device. `train` only picks the default warp;
     the caller sets the model's mode and the autograd context. `sampler`
     overrides the warp (default under `cfg.use_pallas`: `WarpSample.apply`
     with `train`, `warp_sample` without; else `grid_sample`). The sources
@@ -129,9 +134,13 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
     K = batch["K"].to(f32)
     inv_K = batch["inv_K"].to(f32)
     disps = {s: d.to(f32) for s, d in disps.items()}
-    transforms = {fid: transform_from_parameters(
-        poses[fid][0].to(f32), poses[fid][1].to(f32),
-        invert=model.invert_for_frame(fid)) for fid in source_ids}
+    poses = {fid: (aa.to(f32), t.to(f32)) for fid, (aa, t) in poses.items()}
+    # depth-independent for shared/separate: one per source, hoisted
+    transforms = {}
+    if cfg.pose_type in ("shared", "separate"):
+        transforms = {fid: transform_from_parameters(
+            *poses[fid], invert=model.invert_for_frame(fid))
+            for fid in source_ids if fid != "s"}
 
     if sampler is None:
         if not cfg.use_pallas:
@@ -152,7 +161,17 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
             depth0 = depth
         warps = []
         for fid, src in zip(source_ids, warp_sources):
-            grid = warp_grid(depth, inv_K, K, transforms[fid])
+            if fid == "s":
+                T = batch["stereo_T"].to(f32)
+            elif cfg.pose_type == "posecnn":
+                aa, t = poses[fid]
+                mean_inv_depth = (1.0 / depth).mean(dim=(1, 2, 3))
+                T = transform_from_parameters(
+                    aa, t * mean_inv_depth[:, None],
+                    invert=model.invert_for_frame(fid))
+            else:
+                T = transforms[fid]
+            grid = warp_grid(depth, inv_K, K, T)
             if telemetry and scale == 0:
                 span = dy_span(grid.detach())
                 warp_span = span if warp_span is None \

@@ -1,16 +1,19 @@
 """JAX (Flax) variables -> the port's `Monodepth` state_dict.
 
-The exact inverse of `monodepth_tpu.utils.torch_import` for the
-`separate` wiring: it takes the `{"params", "batch_stats"}` tree of the
-JAX `Monodepth` as numpy arrays (no jax needed) and returns the port's
-full state_dict, covering `encoder`, `decoder`, `pose_encoder` and
-`pose_decoder`:
+The exact inverse of `monodepth_tpu.utils.torch_import` for every pose
+wiring: it takes the `{"params", "batch_stats"}` tree of the JAX
+`Monodepth` as numpy arrays (no jax needed) and returns the port's full
+state_dict, covering the modules the tree holds (`encoder`, `decoder`,
+`pose_decoder` and, for `separate`, `pose_encoder`):
 - conv kernels go from HWIO to OIHW;
 - BN scale/bias/mean/var become weight/bias/running_mean/running_var,
   plus a zero `num_batches_tracked` (JAX keeps no such counter);
 - decoder names map to `decoder.decoder.{idx}` in the official order
   [upconv_4_0, upconv_4_1, ..., upconv_0_1, dispconv_s for s in scales];
-- pose decoder names map to `pose_decoder.net.{0..3}`.
+- pose decoder names map to `pose_decoder.net.{0..3}`; a PoseCNN's
+  (`conv_{0..6}`, `pose_conv`, told apart by `pose_conv`) to
+  `pose_decoder.net.{0..6}` and `pose_decoder.pose_conv`;
+- a pose encoder's conv1 keeps its 3·num_pose_frames input channels.
 float64 arrays stay float64, everything else becomes float32.
 
 `module_state_dict` converts one module at a time (the per-module npz
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from monodepth_tpu_torch.models.monodepth import MODULES
 from monodepth_tpu_torch.models.resnet import STAGES
 
 
@@ -88,7 +92,8 @@ def state_dict_from_jax(variables: Mapping[str, Any], cfg) -> "OrderedDict[str, 
 def module_state_dict(name: str, params, stats: Optional[Mapping],
                       num_layers: int, scales) -> "OrderedDict[str, torch.Tensor]":
     """One top-level module of the JAX `Monodepth` (`encoder`, `decoder`,
-    `pose_encoder` or `pose_decoder`: its params tree, and its
+    `pose_encoder` or `pose_decoder`, PoseDecoder or PoseCNN: its params
+    tree, and its
     batch_stats tree or None) -> that module's tensors under the port's
     names; `stats` None leaves out the BN buffers. For the per-module npz
     exports, which may hold some modules and not others."""
@@ -108,10 +113,15 @@ def module_state_dict(name: str, params, stats: Optional[Mapping],
             out[f"{key}.weight"] = _conv(p["kernel"])
             out[f"{key}.bias"] = _f(p["bias"])
     elif name == "pose_decoder":
-        for idx, conv in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
-            p = params[conv]
-            out[f"pose_decoder.net.{idx}.weight"] = _conv(p["kernel"])
-            out[f"pose_decoder.net.{idx}.bias"] = _f(p["bias"])
+        if "pose_conv" in params:  # PoseCNN
+            keys = [(f"conv_{i}", f"net.{i}") for i in range(7)]
+            keys.append(("pose_conv", "pose_conv"))
+        else:
+            keys = [(conv, f"net.{idx}") for idx, conv in
+                    enumerate(("squeeze", "pose_0", "pose_1", "pose_2"))]
+        for conv, key in keys:
+            out[f"pose_decoder.{key}.weight"] = _conv(params[conv]["kernel"])
+            out[f"pose_decoder.{key}.bias"] = _f(params[conv]["bias"])
     else:
         raise ValueError(f"unknown module {name!r}")
     return out
@@ -120,9 +130,10 @@ def module_state_dict(name: str, params, stats: Optional[Mapping],
 def _monodepth(params, stats: Optional[Mapping], num_layers: int,
                scales) -> "OrderedDict[str, torch.Tensor]":
     """A tree shaped like the JAX `Monodepth` params -> tensors under the
-    port's names; `stats` None leaves out the BN buffers."""
+    port's names, for the modules the tree holds; `stats` None leaves out
+    the BN buffers."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    for name in ("encoder", "decoder", "pose_encoder", "pose_decoder"):
+    for name in [m for m in MODULES if m in params]:
         module_stats = None if stats is None else stats.get(name)
         out.update(module_state_dict(name, params[name], module_stats,
                                      num_layers, scales))

@@ -42,7 +42,9 @@ from monodepth_tpu_torch.tools import convert_torch_weights
 from monodepth_tpu_torch.training.state import MODULES, build_model
 from monodepth_tpu_torch.utils import serialization, torch_import
 from monodepth_tpu_torch.utils.jax_import import module_state_dict, state_dict_from_jax
-from torch_parity import flax_variables, randomize_bn_stats
+from torch_parity import flax_variables, one_thread, randomize_bn_stats
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KW = dict(height=64, width=96, scales=(0, 1), num_layers=18, precision="f32",

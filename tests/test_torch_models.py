@@ -21,7 +21,9 @@ from monodepth_tpu_torch.models.monodepth import Monodepth
 from monodepth_tpu_torch.models.pose_decoder import PoseDecoder
 from monodepth_tpu_torch.models.resnet import ResNetEncoder, num_ch_enc
 from monodepth_tpu_torch.utils.jax_import import state_dict_from_jax
-from torch_parity import flax_variables, randomize_bn_stats
+from torch_parity import flax_variables, one_thread, randomize_bn_stats
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _nhwc(t):
@@ -39,7 +41,8 @@ def _seeded(make, seed=0):
         return make().eval()
 
 
-@pytest.mark.parametrize("num_layers,images", [(18, 1), (18, 2), (50, 1)])
+@pytest.mark.parametrize("num_layers,images", [(18, 1), (18, 2), (50, 1), (34, 1),
+                                               (101, 1)])
 def test_encoder_matches_flax(rng, num_layers, images):
     enc = _seeded(lambda: ResNetEncoder(num_layers, images))
     randomize_bn_stats(enc)
@@ -136,13 +139,18 @@ def test_weights_round_trip_bit_exact(dtype):
     model.load_state_dict(back)
 
 
-@pytest.mark.parametrize("kw", [{"pose_type": "shared"},
-                                {"pose_type": "posecnn"},
-                                {"pose_frames": "all"},
-                                {"frame_ids": (0, -1, 1, "s")}])
-def test_later_slice_wirings_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Monodepth(**kw)
+def test_stages_match_the_jax_table():
+    """Every ResNet depth's blocks per stage and block kind (18, 34, 50,
+    101, 152), and the pyramid's channel counts, as the JAX package's."""
+    from monodepth_tpu.models.resnet import STAGES as JSTAGES
+    from monodepth_tpu_torch.models.resnet import STAGES
+
+    assert STAGES == JSTAGES and sorted(STAGES) == [18, 34, 50, 101, 152]
+    for num_layers in STAGES:
+        enc = ResNetEncoder(num_layers, 1)
+        depths = tuple(len(getattr(enc, f"layer{i}")) for i in range(1, 5))
+        assert depths == STAGES[num_layers][0]
+        assert list(enc.num_ch_enc) == list(num_ch_enc(num_layers))
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 1, 4), (1, 2, 3, 1),

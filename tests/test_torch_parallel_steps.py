@@ -31,20 +31,24 @@ MESHES = {"data2": (["--data", "2", "--spatial", "1"], []),
           "data2_spatial2": (["--data", "2", "--spatial", "2"], ["--spatial_halo", "0"])}
 
 
+def _cmd(mesh, out, timeout, extra=()):
+    return [sys.executable, "-m", "monodepth_tpu_torch.parallel.run_steps", *mesh,
+            "--device", "cpu", "--spawn", "--reference", "--f64", "--steps", "2",
+            "--threads", "1", "--timeout", str(timeout), "--deadline", "600",
+            "--out", str(out), *CONFIG, *extra]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{mesh: [report of each rank]}; the three runs go at once. Their 8
-    ranks take ~50 s on an idle 8-core host and over 200 s beside five
-    other test workers, so the deadline, a guard against a hung rank, is
-    600 s."""
+    """{mesh: [report of each rank]}; the three runs go at once, each rank
+    at one intra-op thread. Their 8 ranks take ~50 s on an idle 8-core
+    host and over 200 s beside five other test workers, so the deadline,
+    a guard against a hung rank, is 600 s."""
     tmp = tmp_path_factory.mktemp("steps")
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     procs = {}
     for name, (mesh, extra) in MESHES.items():
-        cmd = [sys.executable, "-m", "monodepth_tpu_torch.parallel.run_steps", *mesh,
-               "--device", "cpu", "--spawn", "--reference", "--f64", "--steps", "2",
-               "--timeout", "60", "--deadline", "600", "--out", str(tmp / name),
-               *CONFIG, *extra]
+        cmd = _cmd(mesh, tmp / name, 60, extra)
         procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
     out = {}
@@ -121,3 +125,21 @@ def test_module_grads_cover_every_parameter():
         p.numel() for p in model.parameters())
     assert sum(float(g.sum()) for g in grads.values()) == sum(
         float(p.grad.double().sum()) for p in model.parameters())
+
+
+def test_reference_runs_after_the_ranks_leave(tmp_path):
+    """F8: rank 0's one-device reference takes no collective, and every rank
+    leaves the process group before it starts, so no rank waits on a
+    collective while it runs. A {data: 2} f64 run whose collectives may wait
+    3 s: its reference took 6.6-7.9 s (one thread, on an 8-core host, idle
+    or beside a full test run), so a rank still waiting at the final barrier while the
+    reference runs times out, as every such run did while rank 0 ran the
+    reference before the ranks left the group (rank exit codes [-15, 1])."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    done = subprocess.run(_cmd(MESHES["data2"][0], tmp_path, 3), cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=660)
+    assert done.returncode == 0, done.stderr[-3000:]
+    report = json.loads((tmp_path / "rank0.json").read_text())
+    assert report["reference_seconds"] > 0
+    assert max(report["reference"]["loss_rel"]) <= 1e-10
+    assert json.loads((tmp_path / "rank1.json").read_text())["losses"] == report["losses"]

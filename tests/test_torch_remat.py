@@ -27,6 +27,9 @@ from monodepth_tpu_torch.ops.cuda.warp_sample import WarpSample
 from monodepth_tpu_torch.ops.sampling import grid_sample
 from monodepth_tpu_torch.training.state import MODULES, build_model, create_state, module_grads
 from monodepth_tpu_torch.training.step import make_train_step
+from torch_parity import one_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KW = dict(height=32, width=64, batch=2, scales=(0, 1, 2, 3), precision="f32",
@@ -135,7 +138,7 @@ def test_build_model_hands_remat_to_both_encoders():
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     """{remat: rank 0's report} of `run_steps` on a {data: 2, spatial: 2}
-    mesh in f64 (4 gloo processes each, both runs at once), with and
+    mesh in f64 (4 gloo processes each at one thread, both runs at once), with and
     without --remat, each with the one-device reference. The deadline is
     a guard against a hung rank, wide enough for a host shared with five
     other test workers (as `tests/test_torch_parallel_steps.py`)."""
@@ -146,7 +149,7 @@ def mesh_runs(tmp_path_factory):
         out = tmp / f"remat_{remat}"
         cmd = [sys.executable, "-m", "monodepth_tpu_torch.parallel.run_steps",
                "--data", "2", "--spatial", "2", "--device", "cpu", "--spawn",
-               "--reference", "--f64", "--steps", "2", "--timeout", "60",
+               "--reference", "--f64", "--steps", "2", "--threads", "1", "--timeout", "60",
                "--deadline", "600", "--out", str(out), "--height", "32", "--width", "128",
                "--batch", "4", "--precision", "f32", "--remat", str(remat).lower()]
         procs[remat] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,

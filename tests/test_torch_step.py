@@ -30,7 +30,9 @@ from monodepth_tpu_torch.training.step import (
     make_infer_step,
     make_train_step,
 )
-from torch_parity import eval_noise, flax_variables, randomize_bn_stats
+from torch_parity import eval_noise, flax_variables, one_thread, randomize_bn_stats
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KW = dict(height=32, width=128, batch=2, scales=(0, 1, 2, 3), precision="f32",

@@ -32,7 +32,9 @@ from monodepth_tpu_torch.utils.jax_import import (
     optimizer_state_from_jax,
     state_dict_from_jax,
 )
-from torch_parity import flax_variables, randomize_bn_stats
+from torch_parity import flax_variables, one_thread, randomize_bn_stats
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 KW = dict(height=32, width=128, batch=2, scales=(0, 1, 2, 3), precision="f32",
           weight_init=False, scheduler_step=1)

@@ -19,7 +19,15 @@ from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.synthetic import make_planar_scenes
 from monodepth_tpu_torch.training.state import build_model, create_state
 from monodepth_tpu_torch.training.step import make_train_step
-from torch_parity import flax_variables, grads_as_flax, randomize_bn_stats, train_noise
+from torch_parity import (
+    flax_variables,
+    grads_as_flax,
+    one_thread,
+    randomize_bn_stats,
+    train_noise,
+)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 KW = dict(height=32, width=128, batch=2, scales=(0, 1, 2, 3), precision="f32",
           weight_init=False, use_pallas=False)

@@ -31,7 +31,9 @@ from monodepth_tpu_torch.ops.cuda.warp_sample import warp_sample, warp_sample_gr
 from monodepth_tpu_torch.training.state import build_model, create_state
 from monodepth_tpu_torch.training.step import make_train_step
 from test_torch_step import _batch
-from torch_parity import flax_variables, randomize_bn_stats, train_noise
+from torch_parity import flax_variables, one_thread, randomize_bn_stats, train_noise
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 KW = dict(height=32, width=128, batch=2, scales=(0, 1, 2, 3), precision="f32",
           weight_init=False, use_pallas=True, pallas_interpret=True,

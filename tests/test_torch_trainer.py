@@ -135,6 +135,43 @@ def test_resume_equals_uninterrupted_run(tree, tmp_path):
     assert os.path.exists(os.path.join(whole.save_dir, "state_0001.pt"))
 
 
+@pytest.mark.parametrize("pose_type", ["separate", "shared", "posecnn"])
+def test_stereo_epoch_exports_the_wirings_modules(tree, tmp_path, pose_type):
+    """One epoch with `--dataset kitti_stereo` (mono+stereo: `validate`
+    adds "s", the loader feeds `stereo_T` through `prefetch_to_device`):
+    every train batch holds it, the losses are finite, and the exports hold
+    the modules the wiring has, which `state_from_modules` reads back
+    exactly."""
+    from monodepth_tpu_torch.evaluation.eigen import state_from_modules
+
+    trainer = Trainer(_cfg(tree, tmp_path, epoch=1, dataset="kitti_stereo",
+                           pose_type=pose_type), device="cpu")
+    assert trainer.cfg.frame_ids == (0, -1, 1, "s")
+    batches, step = [], trainer.train_step
+
+    def spy(state, batch):
+        batches.append(batch)
+        return step(state, batch)
+
+    trainer.train_step = spy
+    trainer.train()
+    assert len(batches) == 2
+    assert all(isinstance(b["stereo_T"], torch.Tensor) and b["stereo_T"].shape == (2, 4, 4)
+               and b["frames"].shape[1] == 4 for b in batches)
+    record = _records(trainer.save_dir)[0]
+    assert np.isfinite([record["train"]["loss"], record["valid"]["loss"]]).all()
+    expected = {"encoder", "decoder", "pose_decoder"} | (
+        {"pose_encoder"} if pose_type == "separate" else set())
+    exported = {name[:-5] for name in os.listdir(trainer.save_dir)
+                if name.endswith("1.npz")}
+    assert exported == expected
+    loaded = state_from_modules(trainer.cfg, trainer.save_dir, 1, device="cpu")
+    ours = trainer.model.state_dict()
+    for key, value in loaded.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            assert torch.equal(value, ours[key]), key
+
+
 def _state(cfg, seed):
     model = build_model(dataclasses.replace(cfg, seed=seed), device="cpu")
     state = create_state(cfg, model, steps_per_epoch=3)
@@ -363,17 +400,26 @@ def test_train_cli_then_model_test_cli(tree, tmp_path):
     assert len(values) == 7 and all(np.isfinite(values)), out
 
 
-def test_convergence_proof_runs_on_the_cpu():
-    """The proof tool's mono path at a tiny size (3 steps: too few to pass
-    its rule), and stereo mode raising until the stereo wiring lands."""
+def _proof(mode):
     from monodepth_tpu_torch.tools import convergence_proof
 
-    result = convergence_proof.main(["--steps", "3", "--height", "32", "--width", "64",
-                                     "--batch", "2", "--scenes", "4", "--device", "cpu",
-                                     "--use_pallas", "true"])
-    assert result["steps"] == 3 and result["precision"] == "f32"
-    assert len(result["per_scene_corr"]) == 4
+    result = convergence_proof.main(["--mode", mode, "--steps", "3", "--height", "32",
+                                     "--width", "64", "--batch", "2", "--scenes", "4",
+                                     "--device", "cpu", "--use_pallas", "true"])
+    assert result["mode"] == mode and result["steps"] == 3
+    assert result["precision"] == "f32" and len(result["per_scene_corr"]) == 4
     assert np.isfinite([result["loss_first10"], result["rank_corr_trained_mean"]]).all()
     assert isinstance(result["pass"], bool)
-    with pytest.raises(NotImplementedError, match="6d"):
-        convergence_proof.main(["--mode", "stereo", "--device", "cpu"])
+    return result
+
+
+def test_convergence_proof_runs_on_the_cpu():
+    """The proof tool's mono path at a tiny size (3 steps: too few to pass
+    its rule)."""
+    assert _proof("mono")["frame_ids"] == ["0", "-1", "1"]
+
+
+def test_convergence_proof_stereo_runs_on_the_cpu():
+    """Its stereo path (the tool's default mode, as the JAX tool's): frames
+    (0, "s"), the scenes' ground-truth baseline as `stereo_T`."""
+    assert _proof("stereo")["frame_ids"] == ["0", "s"]

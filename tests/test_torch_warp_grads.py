@@ -24,6 +24,9 @@ from monodepth_tpu_torch.ops.cuda.warp_sample import (
 from monodepth_tpu_torch.ops.sampling import clip, grid_sample
 from monodepth_tpu_torch.ops.ssim import ssim
 from test_torch_warp_sample import _warp_grid_np
+from torch_parity import one_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _nhwc(a):

@@ -1,14 +1,27 @@
 """Shared helpers of the tests that hold `monodepth_tpu_torch` against
 `monodepth_tpu`: random batch-norm statistics, the port's state_dict (or
-its gradients) as the JAX `Monodepth` variables, and the tie-break noise
-of the JAX eval and train steps."""
+its gradients) as the JAX `Monodepth` variables, the tie-break noise of
+the JAX eval and train steps, and the `one_thread` fixture."""
 
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from monodepth_tpu.utils import torch_import
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op torch thread for a test module (`pytestmark =
+    pytest.mark.usefixtures("one_thread")`, with this fixture imported):
+    the shapes are tiny, and beside the other test workers on the host more
+    threads only oversubscribe its cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def randomize_bn_stats(model: torch.nn.Module, seed: int = 0) -> None:
@@ -27,26 +40,31 @@ def _sub(sd, prefix):
 
 
 def flax_variables(state_dict, cfg):
-    """The port's `Monodepth` state_dict -> the JAX `Monodepth` variables,
-    through `monodepth_tpu.utils.torch_import`."""
+    """The port's `Monodepth` state_dict -> the JAX `Monodepth` variables of
+    `cfg`'s pose wiring, through `monodepth_tpu.utils.torch_import`: the
+    pose decoder as PoseCNN for `posecnn`, the pose encoder (of
+    `cfg.num_pose_frames` images) for `separate` only."""
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()
           if v.ndim >= 1}
     enc = torch_import.resnet_encoder_variables(
         _sub(sd, "encoder."), cfg.num_layers)
-    penc = torch_import.resnet_encoder_variables(
-        _sub(sd, "pose_encoder."), cfg.num_layers, num_input_images=2)
-    return {
-        "params": {
-            "encoder": enc["params"],
-            "decoder": torch_import.depth_decoder_params(
-                _sub(sd, "decoder."), cfg.scales),
-            "pose_encoder": penc["params"],
-            "pose_decoder": torch_import.pose_decoder_params(
-                _sub(sd, "pose_decoder.")),
-        },
-        "batch_stats": {"encoder": enc["batch_stats"],
-                        "pose_encoder": penc["batch_stats"]},
+    pose = _sub(sd, "pose_decoder.")
+    params = {
+        "encoder": enc["params"],
+        "decoder": torch_import.depth_decoder_params(
+            _sub(sd, "decoder."), cfg.scales),
+        "pose_decoder": (torch_import.pose_cnn_params(pose)
+                         if cfg.pose_type == "posecnn"
+                         else torch_import.pose_decoder_params(pose)),
     }
+    stats = {"encoder": enc["batch_stats"]}
+    if cfg.pose_type == "separate":
+        penc = torch_import.resnet_encoder_variables(
+            _sub(sd, "pose_encoder."), cfg.num_layers,
+            num_input_images=cfg.num_pose_frames)
+        params["pose_encoder"] = penc["params"]
+        stats["pose_encoder"] = penc["batch_stats"]
+    return {"params": params, "batch_stats": stats}
 
 
 def grads_as_flax(model: torch.nn.Module, cfg):
