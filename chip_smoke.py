@@ -34,9 +34,13 @@ Phases, each fatal on failure:
 4. the warp-gather probes (`ops/cuda/probes.py`, P-A to P-D): each kernel
    against its plain version at the probe tool's shapes and inputs, at
    the CPU tests' shapes with out-of-range indices, and at one odd shape:
-   equal exactly, NaN exactly where the plain version has NaN; each
+   equal exactly, NaN exactly where the plain version has NaN (P-D also
+   at every n_y 1-8 at the tool's shape, on int32-extreme indices and at
+   the widest rows one block's shared memory holds); each
    kernel's device time as in phase 3 (rotating inputs larger than L2 for
-   P-D), beside its bound from this run's inputs, its plain version's time
+   P-D; its coalesced-index and L2-warm times beside), beside its bound
+   from this run's inputs, the launch floor (a one-element in-place add
+   by the same replay), its plain version's time
    and the library call's; then the probe tool's path,
    `kernel_probe.main()`, with the launch counts set to 0 just before and
    read just after (P-A, P-B, P-C once each, P-D 52 times): A-C equal to
@@ -600,6 +604,7 @@ def probe_cases(rng):
     inputs, the CPU tests' shapes with out-of-range indices, one odd shape."""
     import numpy as np
 
+    from monodepth_tpu_torch.ops.cuda import probes
     from monodepth_tpu_torch.tools import kernel_probe as kp
 
     def gather(S, W, lo, hi):
@@ -609,6 +614,14 @@ def probe_cases(rng):
     def slab(B, H, W):
         return (rng.uniform(-1, 1, (B, H, W)).astype(np.float32),
                 rng.integers(-W // 8, W + W // 8, (B, H, W)).astype(np.int32))
+
+    def slab_extremes():
+        """Rows of negative indices, of indices at and past W, the int32
+        extremes; the rest in range."""
+        src, idx = slab(2, 16, 256)
+        idx[0, 0], idx[0, 1], idx[0, 2] = -1 - idx[0, 0] % 256, 256 + idx[0, 1] % 256, 256
+        idx[1, 3, ::2], idx[1, 3, 1::2] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+        return src, idx
 
     src64 = rng.uniform(-1, 1, (64, 256)).astype(np.float32)
     return {
@@ -623,9 +636,12 @@ def probe_cases(rng):
            for lim in ((50, 61), (0, 64), (7, 7), (9, 3))]
         + [("odd 97x640 lim (0, 97)", (rng.uniform(-1, 1, (97, 640)).astype(np.float32),
                                        np.array([0, 97], np.int32)), ())],
-        "slab_gather": [("probe 12x192x640 n_y=4", kp.inputs_d(), (4,))]
+        "slab_gather": [(f"probe 12x192x640 n_y={n}", kp.inputs_d(), (n,)) for n in range(1, 9)]
         + [(f"test 2x16x256 n_y={n}", slab(2, 16, 256), (n,)) for n in (1, 4, 8)]
-        + [("odd 1x8x128 n_y=8", slab(1, 8, 128), (8,))],
+        + [(f"odd 1x8x128 n_y={n}", slab(1, 8, 128), (n,)) for n in (1, 4, 8)]
+        + [("extreme indices 2x16x256 n_y=8", slab_extremes(), (8,))]
+        + [(f"widest rows 1x8x{probes.slab_max_width(n)} n_y={n}",
+            slab(1, 8, probes.slab_max_width(n)), (n,)) for n in (1, 4, 8)],
     }
 
 
@@ -707,6 +723,12 @@ def phase_probes(torch, dev, card):
                  for s, _ in d_sets]
     d_extra = {"coalesced_idx_ms": graph_ms(slab, coalesced),
                "l2_warm_ms": graph_ms(slab, d_sets[:1])}
+    # the launch floor: a one-element in-place add by the same replay
+    one = torch.zeros(1, device=dev)
+    floor_us = graph_ms(lambda t: t.add_(1), [(one,)]) * 1e3
+    log(json.dumps({"launch_floor_us": floor_us,
+                    "what": "one-element in-place add, CUDA graph of 40 calls x 10 replays",
+                    "card": card}))
     out = []
     for name, (sets, (kernel, plain), library, library_what) in setups.items():
         extra = d_extra if name == "slab_gather" else {}
@@ -719,6 +741,10 @@ def phase_probes(torch, dev, card):
         bound_ms, bound_by = bounds[name]
         probe, replaces = PROBES[name]
         log(json.dumps({f"{name}_us": ms * 1e3, "bound_us": bound_ms * 1e3,
+                        "pct_of_bound": 100 * bound_ms / ms,
+                        "pct_of_bound_or_floor": 100 * max(bound_ms * 1e3, floor_us)
+                        / (ms * 1e3),
+                        "launch_floor_us": floor_us,
                         "plain_ms": plain_ms, "library_ms": library_ms,
                         "library": library_what,
                         "timing": "device, CUDA graph of 40 calls x 10 replays"

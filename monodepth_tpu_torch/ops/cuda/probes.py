@@ -18,6 +18,10 @@ indices):
   W % 128 == 0, 1 <= n_y <= 8: out[b, r, l] is the sum over j < n_y, in j
   order, of src[b, 8·(r // 8) + j, idx[b, r, l]], each term 0 where idx is
   outside [0, W). An n_y above 8 would read past the last slab and raises.
+  The kernel stages a slab's n_y source rows in shared memory, so on the
+  card W <= `slab_max_width(n_y)` (7,168 at n_y = 8) and src and idx start
+  on 16 bytes (a view with a storage offset may not); beyond either it
+  raises ValueError. The plain version has neither limit.
 
 On a CUDA tensor each launches its entry point of `csrc/probes.cu` (built
 with nvcc for sm_90a at first use, bound with ctypes) on the current
@@ -40,6 +44,8 @@ Tensor = torch.Tensor
 
 LANES = 128  # the TPU probes' chunk width: P-B and P-D need W % 128 == 0
 SLAB = 8     # rows per slab of P-D
+BLOCK_SMEM = 232_448  # bytes of shared memory a Hopper block can hold (227 KB)
+SLAB_BARRIER = 16     # bytes of P-D's block ahead of its rows (kBarrierBytes in probes.cu)
 
 
 def _need(cond: bool, name: str, what: str) -> None:
@@ -79,6 +85,23 @@ def _check_slab(src: Tensor, idx: Tensor, n_y: int) -> None:
           f"needs H % {SLAB} == 0 and W % {LANES} == 0; got {tuple(src.shape)}")
     _need(1 <= n_y <= SLAB, name,
           f"needs 1 <= n_y <= {SLAB} (a slab has {SLAB} rows); got {n_y}")
+
+
+def slab_max_width(n_y: int) -> int:
+    """The widest W (a multiple of 128) whose n_y float32 rows P-D's kernel
+    holds in one block's shared memory."""
+    return (BLOCK_SMEM - SLAB_BARRIER) // (4 * n_y) // LANES * LANES
+
+
+def _check_slab_kernel(src: Tensor, idx: Tensor, n_y: int) -> None:
+    """What P-D's kernel needs beyond `_check_slab`."""
+    name, W = "slab_gather", src.shape[2]
+    _need(W <= slab_max_width(n_y), name,
+          f"kernel holds n_y rows in shared memory: W <= {slab_max_width(n_y)} at "
+          f"n_y = {n_y} ({BLOCK_SMEM} bytes a block); got W = {W}")
+    _need(src.data_ptr() % 16 == 0 and idx.data_ptr() % 16 == 0, name,
+          "kernel needs src and idx on 16-byte boundaries (a view with a storage "
+          f"offset may not be); got addresses {src.data_ptr():#x}, {idx.data_ptr():#x}")
 
 
 def take_along_axis_reference(tab: Tensor, idx: Tensor) -> Tensor:
@@ -170,6 +193,7 @@ def slab_gather(src: Tensor, idx: Tensor, n_y: int) -> Tensor:
     if src.device.type == "cpu":
         return slab_gather_reference(src, idx, n_y)
     _check_slab(src, idx, n_y)
+    _check_slab_kernel(src, idx, n_y)
     return _launch(slab_gather, (src, idx), torch.empty_like(src), *src.shape, n_y)
 
 

@@ -350,8 +350,16 @@ def test_row_sum_kernel_matches_plain(cuda, shape, lim):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,n_y", [((12, 192, 640), 4), ((2, 16, 256), 1),
-                                       ((2, 16, 256), 8), ((1, 8, 128), 8)])
+                                       ((2, 16, 256), 8), ((1, 8, 128), 8)]
+                         + [((12, 192, 640), n) for n in (1, 2, 3, 5, 6, 7, 8)]
+                         + [((1, 8, 128), n) for n in (1, 4)]
+                         + [((1, 8, probes.slab_max_width(8)), 8),
+                            ((2, 16, probes.slab_max_width(4)), 4),
+                            ((1, 8, probes.slab_max_width(1)), 1)])
 def test_slab_gather_kernel_matches_plain(cuda, shape, n_y):
+    """P-D bit for bit, indices 1/8 of W either side of [0, W): every n_y at
+    the probe's shape, the smallest slab, and the widest rows that one
+    block's shared memory holds (above 48 KB, by request)."""
     W = shape[2]
     src, idx = (t.to(cuda) for t in _probe_inputs(np.random.default_rng(3), shape,
                                                    -W // 8, W + W // 8))
@@ -359,7 +367,65 @@ def test_slab_gather_kernel_matches_plain(cuda, shape, n_y):
     out = probes.slab_gather(src, idx, n_y)
     torch.cuda.synchronize()
     assert probes.slab_gather.launches == before + 1
-    assert torch.equal(out, probes.slab_gather_reference(src, idx, n_y))
+    assert _bits_equal(out, probes.slab_gather_reference(src, idx, n_y))
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_y", [1, 8])
+def test_slab_gather_kernel_out_of_range_indices(cuda, n_y):
+    """Rows of negative indices, of indices at and past W, and the int32
+    extremes add 0 terms; a row of -0.0 sources keeps the plain version's
+    +0.0 sums."""
+    B, H, W = 2, 16, 256
+    rng = np.random.default_rng(5)
+    src = rng.uniform(-1, 1, (B, H, W)).astype(np.float32)
+    src[1, 8] = -0.0
+    idx = rng.integers(0, W, (B, H, W)).astype(np.int32)
+    idx[0, 0] = rng.integers(-W, 0, W)
+    idx[0, 1] = rng.integers(W, 2 * W, W)
+    idx[0, 2] = W
+    idx[0, 3, ::2], idx[0, 3, 1::2] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    idx[1, 9] = -1
+    src, idx = torch.from_numpy(src).to(cuda), torch.from_numpy(idx).to(cuda)
+    out = probes.slab_gather(src, idx, n_y)
+    assert _bits_equal(out, probes.slab_gather_reference(src, idx, n_y))
+    assert torch.equal(out.view(torch.int32)[0, :4], torch.zeros_like(idx[0, :4]))
+
+
+@pytest.mark.gpu
+def test_slab_gather_kernel_rejects_rows_beyond_shared_memory(cuda):
+    """n_y whole rows must fit one block's shared memory: one lane chunk
+    wider raises on the card with the limit, the plain version takes it."""
+    for n_y in (8, 4):
+        W = probes.slab_max_width(n_y) + probes.LANES
+        src, idx = torch.zeros((1, 8, W), device=cuda), torch.zeros(
+            (1, 8, W), dtype=torch.int32, device=cuda)
+        before = probes.slab_gather.launches
+        with pytest.raises(ValueError, match=f"W <= {W - probes.LANES} at n_y = {n_y}"):
+            probes.slab_gather(src, idx, n_y)
+        assert probes.slab_gather.launches == before
+    assert probes.slab_gather_reference(src, idx, 4).shape == (1, 8, W)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["src", "idx"])
+def test_slab_gather_kernel_rejects_a_storage_offset(cuda, which):
+    """The bulk copy, int4 loads and float4 stores need 16-byte aligned
+    pointers: a contiguous view 4 bytes off raises; an aligned copy of it
+    gives the plain version's result."""
+    src, idx = (t.to(cuda) for t in _probe_inputs(np.random.default_rng(6), (2, 16, 256),
+                                                   -32, 288))
+    args = {"src": src, "idx": idx}
+    args[which] = _offset(args[which])
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.slab_gather(args["src"], args["idx"], 4)
+    args[which] = args[which].clone()
+    assert _bits_equal(probes.slab_gather(args["src"], args["idx"], 4),
+                       probes.slab_gather_reference(src, idx, 4))
 
 
 def _slab(img, s, n, halo):

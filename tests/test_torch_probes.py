@@ -107,7 +107,7 @@ def test_row_sum_matches_jax(record, lim):
         assert (ours == 0).all()
 
 
-@pytest.mark.parametrize("n_y", [1, 4, 8])
+@pytest.mark.parametrize("n_y", [1, 4, 8, 2, 3, 5, 6, 7])
 def test_slab_gather_matches_jax(record, n_y):
     """P-D at [2, 16, 256]: n_y row gathers per 8-row slab, summed in row
     order; out-of-range indices add 0."""
@@ -118,6 +118,61 @@ def test_slab_gather_matches_jax(record, n_y):
     idx = rng.integers(-W // 8, W + W // 8, (B, H, W)).astype(np.int32)
     ours = probes.slab_gather(torch.from_numpy(src), torch.from_numpy(idx), n_y)
     _same(ours, kernel(jnp.asarray(src), jnp.asarray(idx)))
+
+
+def test_slab_gather_extreme_indices_match_jax(record):
+    """P-D at [1, 8, 128], n_y = 8: rows of negative indices, of indices at
+    and past W, and the int32 extremes add 0 terms, as in the Pallas
+    kernel's candidate select."""
+    B, H, W = 1, 8, 128
+    kernel = record("probe_d", B=B, H=H, W=W, n_y=8)
+    rng = np.random.default_rng(9)
+    src = rng.uniform(-1, 1, (B, H, W)).astype(np.float32)
+    idx = rng.integers(0, W, (B, H, W)).astype(np.int32)
+    idx[0, 0] = rng.integers(-W, 0, W)
+    idx[0, 1] = rng.integers(W, 2 * W, W)
+    idx[0, 2] = W
+    idx[0, 3, ::2], idx[0, 3, 1::2] = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    ours = probes.slab_gather(torch.from_numpy(src), torch.from_numpy(idx), 8)
+    _same(ours, kernel(jnp.asarray(src), jnp.asarray(idx)))
+    assert (ours[0, :4] == 0).all() and (ours[0, 4:] != 0).all()
+
+
+def _slab_gather_numpy(src, idx, n_y):
+    """P-D's definition in numpy, float32 sums in j order."""
+    B, H, W = src.shape
+    inside = (idx >= 0) & (idx < W)
+    acc = np.zeros_like(src)
+    for r in range(H):
+        for j in range(n_y):
+            row = src[:, r - r % 8 + j]
+            got = np.take_along_axis(row, np.clip(idx[:, r], 0, W - 1), axis=1)
+            acc[:, r] = acc[:, r] + np.where(inside[:, r], got, np.float32(0))
+    return acc
+
+
+def test_slab_gather_plain_has_no_kernel_limits():
+    """The kernel's shared-memory width limit and 16-byte alignment hold on
+    the card only: on the CPU a wider row and a view 4 bytes off go through
+    the plain version, equal to P-D's definition."""
+    assert [probes.slab_max_width(n) for n in (1, 4, 8)] == [57984, 14464, 7168]
+    for n_y in range(1, 9):  # the widest W fits, one lane chunk more does not
+        need = probes.SLAB_BARRIER + 4 * n_y * probes.slab_max_width(n_y)
+        assert need <= probes.BLOCK_SMEM < need + 4 * n_y * probes.LANES
+    B, H, W = 1, 16, probes.slab_max_width(8) + probes.LANES
+    rng = np.random.default_rng(8)
+    src = rng.uniform(-1, 1, (B, H, W)).astype(np.float32)
+    idx = rng.integers(-W // 8, W + W // 8, (B, H, W)).astype(np.int32)
+    expect = _slab_gather_numpy(src, idx, 8)
+    buf = torch.zeros(B * H * W + 1, dtype=torch.int32)
+    shifted = buf[1:].view(B, H, W)
+    shifted.copy_(torch.from_numpy(idx))
+    assert shifted.data_ptr() % 16 != 0
+    before = probes.slab_gather.launches
+    for i in (torch.from_numpy(idx), shifted):
+        out = probes.slab_gather(torch.from_numpy(src), i, 8)
+        np.testing.assert_array_equal(out.numpy().view(np.int32), expect.view(np.int32))
+    assert probes.slab_gather.launches == before
 
 
 def _f(*shape):
