@@ -14,8 +14,9 @@
 
 GT is projected straight from velodyne with vel_depth=True at the native
 rectified size (model_test.py:47-57). Steps 2-4 are host numpy (shapes
-vary per drive). The sweep over several processes (`process_slice`,
-`evaluate_multihost`) is not ported yet.
+vary per drive). Over several processes each one sweeps its
+`process_slice` of the split on its own device, and `evaluate_multihost`
+combines the per-image error sums with one all-gather.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import os
 from typing import Dict, List, Sequence
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data import kitti
@@ -178,6 +181,94 @@ def eigen_metrics(disparities: np.ndarray,
     if not len(errors):
         raise ValueError("eigen_metrics: empty sweep (no images)")
     return dict(zip(METRIC_NAMES, errors.mean(0).tolist()))
+
+
+def process_slice(lines: Sequence[str], index: int | None = None,
+                  count: int | None = None) -> list:
+    """This process's interleaved slice `lines[index::count]` of the test
+    split for a sweep over several processes; `index` and `count` default
+    to the process group's rank and size (0 and 1 without one).
+    Interleaved, not contiguous, so that drives of unequal length spread
+    evenly; the metrics are a mean over per-image errors, which does not
+    depend on the order."""
+    if (index is None) != (count is None):
+        raise ValueError("index and count must be given together (or both "
+                         "left to torch.distributed)")
+    if count is None:
+        initialized = dist.is_available() and dist.is_initialized()
+        index = dist.get_rank() if initialized else 0
+        count = dist.get_world_size() if initialized else 1
+    return list(lines)[index::count]
+
+
+def _all_gather_rows(row: np.ndarray) -> np.ndarray:
+    """Every process's f64 `row`, stacked in rank order: one all-gather
+    (the row itself without a process group). NCCL gathers on the current
+    card, gloo in host memory."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return row[None]
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    own = torch.as_tensor(row, dtype=torch.float64).to(device)
+    rows = [torch.empty_like(own) for _ in range(dist.get_world_size())]
+    dist.all_gather(rows, own)
+    return torch.stack(rows).cpu().numpy()
+
+
+def evaluate_multihost(cfg: Config, model: Monodepth | None,
+                       local_lines: Sequence[str],
+                       local_gts: Sequence[np.ndarray],
+                       eval_batch: int = 16, num_workers: int = 8,
+                       infer=None, failure: Exception | None = None,
+                       disparities: np.ndarray | None = None
+                       ) -> Dict[str, float]:
+    """The Eigen protocol over the processes of the group, each with its
+    slice (`process_slice`) of the split: the counterpart of JAX's
+    `evaluate_multihost`, with the model (on this process's device) in
+    place of the replicated state.
+
+    Each process sweeps `local_lines` on its own device with no
+    collective in the loop (`predict_disparities`, `infer` reused when
+    given; or the `disparities` it already predicted for them), then one
+    all-gather of [7 error sums, image count, ok] in f64 combines the
+    processes into the mean over every image, as one process sweeping the
+    whole split computes it.
+
+    Every process must call it in step. A process whose sweep fails still
+    joins the all-gather with ok = 0, and then every process raises,
+    naming the failed ranks; a process that failed before the call passes
+    its exception as `failure` to keep the collective alive. With a single
+    process the all-gather is the identity."""
+    nmetrics = len(METRIC_NAMES)
+    err = failure
+    sums, count = np.zeros(nmetrics), 0.0
+    if err is None:
+        try:
+            if len(local_lines) != len(local_gts):
+                raise ValueError(f"{len(local_lines)} lines vs "
+                                 f"{len(local_gts)} ground truths")
+            if local_lines:
+                if disparities is None:
+                    disparities = predict_disparities(
+                        cfg, model, local_lines, eval_batch, num_workers,
+                        device=next(model.parameters()).device, infer=infer)
+                errors = eigen_errors(disparities, local_gts, cfg.datatype)
+                sums, count = errors.sum(0), float(len(errors))
+        except Exception as exc:  # noqa: BLE001 - must reach the all-gather
+            err = exc
+            sums, count = np.zeros(nmetrics), 0.0
+    gathered = _all_gather_rows(
+        np.concatenate([sums, [count, 0.0 if err else 1.0]]))
+    if gathered[:, -1].min() < 1.0:
+        failed = np.nonzero(gathered[:, -1] < 1.0)[0].tolist()
+        raise RuntimeError(
+            f"eigen sweep failed on process(es) {failed}"
+            + (f": {type(err).__name__}: {err}" if err is not None else
+               " (this rank succeeded; see the failed ranks' logs)")) from err
+    total = gathered[:, nmetrics].sum()
+    if total == 0:
+        raise RuntimeError("eigen sweep saw zero test images")
+    means = gathered[:, :nmetrics].sum(0) / total
+    return dict(zip(METRIC_NAMES, means.tolist()))
 
 
 def evaluate(cfg: Config, model: Monodepth,

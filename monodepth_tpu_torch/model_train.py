@@ -15,13 +15,26 @@ feeds each batch's `stereo_T`. Without a card and without
 `state_<epoch>.pt`, the module exports `<module><epoch + 1>.npz` (which
 `python -m monodepth_tpu_torch.model_test --weights <dir>:<epoch>`
 reads), `metrics.jsonl` and `loss/*.npy`.
+
+On a process mesh, one process per rank, data-parallel over all of them:
+
+    torchrun --nproc_per_node 2 -m monodepth_tpu_torch.model_train \
+        --data_parallel 2 --batch 12 ...
+
+Each rank takes the card LOCAL_RANK over NCCL. `--backend gloo` lets the
+ranks share a card (LOCAL_RANK modulo the card count), with collectives
+staged through host memory; with `--device cpu` the ranks run gloo on the
+CPU. Rank 0 writes the files and prints.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from monodepth_tpu_torch.config import options
+from monodepth_tpu_torch.parallel.mesh import init_distributed
 from monodepth_tpu_torch.training.loop import Trainer
 
 
@@ -29,8 +42,17 @@ def main(argv=None):
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (the default: the card) or cpu")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="under torchrun: nccl (the default on cards, one rank a "
+                        "card) or gloo (the CPU's default; on cards, ranks may "
+                        "share one)")
     args, rest = p.parse_known_args(argv)
-    return Trainer(options(rest), device=args.device).train()
+    grouped = init_distributed(args.device, backend=args.backend)
+    try:
+        return Trainer(options(rest), device=args.device).train()
+    finally:
+        if grouped:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

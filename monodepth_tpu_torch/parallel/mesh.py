@@ -41,13 +41,19 @@ Tensor = torch.Tensor
 _SPATIAL_KEYS = {"frames": 2}
 
 
-def init_distributed(device=None, timeout_s: float = 300.0) -> bool:
+def init_distributed(device=None, timeout_s: float = 300.0,
+                     backend: str | None = None) -> bool:
     """Join the process group that torchrun's environment describes
-    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on the
-    card LOCAL_RANK, which becomes the current device, or gloo when
-    `device` is the CPU. Collectives give up after `timeout_s` seconds. A
-    single process (WORLD_SIZE unset or 1) is a no-op. Returns True when
-    this process is in a group of more than one."""
+    (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT). `backend` None takes NCCL on the card and gloo on the
+    CPU. NCCL puts one rank on each card: the card LOCAL_RANK, which
+    becomes the current device, and a `ValueError` when the host runs more
+    ranks than it has cards. An explicit "gloo" may run on cards too, where
+    its collectives stage through host memory: the card is LOCAL_RANK
+    modulo the card count, so two ranks can share one card. Collectives
+    give up after `timeout_s` seconds. A single process (WORLD_SIZE unset
+    or 1) is a no-op. Returns True when this process is in a group of
+    more than one."""
     from monodepth_tpu_torch.training.state import resolve_device
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -58,11 +64,20 @@ def init_distributed(device=None, timeout_s: float = 300.0) -> bool:
     device = resolve_device(device)
     rank = int(os.environ["RANK"])
     local = int(os.environ.get("LOCAL_RANK", rank))
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: nccl or gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("NCCL runs on cards only; the CPU takes gloo")
     if device.type == "cuda":
-        torch.cuda.set_device(local)
-        backend = "nccl"
-    else:
-        backend = "gloo"
+        cards = torch.cuda.device_count()
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if backend == "nccl" and max(local_world, local + 1) > cards:
+            raise ValueError(
+                f"NCCL puts one rank on each card: {local_world} ranks on this "
+                f"host, {cards} card(s); pass backend gloo to share a card")
+        torch.cuda.set_device(local % cards)
     address = f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
     dist.init_process_group(backend, init_method=address, rank=rank,
                             world_size=world,
@@ -170,19 +185,45 @@ def shard_batch(mesh: Mesh, batch: Mapping[str, Any]) -> Dict[str, Tensor]:
     return out
 
 
+def _broadcast(t: Tensor, device: torch.device) -> None:
+    """Broadcast `t` from rank 0 in place; a host tensor goes through
+    `device` when the backend is NCCL (Adam's step counts stay on the
+    host)."""
+    if t.device.type == "cpu" and dist.get_backend() == "nccl":
+        staged = t.to(device)
+        dist.broadcast(staged, src=0)
+        t.copy_(staged)
+    else:
+        dist.broadcast(t, src=0)
+
+
 def replicate(mesh: Mesh, state: TrainState) -> TrainState:
-    """Broadcast the model's parameters and buffers from rank 0, in place,
-    so every rank starts from rank 0's state. Call it before the first
-    step: the optimizer's state is not sent."""
+    """Broadcast the model's parameters and buffers and the optimizer's
+    state from rank 0, in place, so every rank holds rank 0's state: before
+    the first step, and after a resume. The optimizer's state must have
+    the same entries on every rank (none before the first step, or those
+    of one checkpoint)."""
     if not dist.is_initialized():
         return state
-    if state.optimizer is not None and state.optimizer.state:
-        raise ValueError("replicate the state before its first step: the "
-                         "optimizer's moments are not broadcast")
+    tensors = list(state.model.parameters()) + list(state.model.buffers())
+    if state.optimizer is not None:
+        tensors += [v for entry in state.optimizer.state.values()
+                    for v in entry.values() if isinstance(v, Tensor)]
     with torch.no_grad():
-        for t in list(state.model.parameters()) + list(state.model.buffers()):
-            dist.broadcast(t.data, src=0)
+        for t in tensors:
+            _broadcast(t.data, mesh.device)
     return state
+
+
+def agree_max(mesh: Mesh, value: float) -> float:
+    """The largest of every rank's `value` (one all-reduce; the value
+    itself without a process group): the ranks' stop flag at an epoch
+    boundary."""
+    if not dist.is_initialized():
+        return value
+    t = torch.tensor([float(value)], dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
 
 
 def warm_collectives(mesh: Mesh) -> float:
@@ -216,27 +257,28 @@ def exchange_halo(own: Tensor, halo: int, mesh: Mesh):
     """Send the first `halo` rows (axis 1) of `own` to the previous rank
     of the spatial group and the last `halo` to the next, one
     `batch_isend_irecv` -> (rows from the previous rank, rows from the
-    next). The edge ranks get zeros where they have no neighbour."""
+    next). The edge ranks get zeros where they have no neighbour. Under
+    gloo a card's rows go through host memory: gloo sends and receives
+    host tensors only."""
     shape = (own.shape[0], halo) + tuple(own.shape[2:])
-    from_prev = own.new_zeros(shape)
-    from_next = own.new_zeros(shape)
     s, n = mesh.spatial_index, mesh.spatial
     if halo == 0 or n == 1:
-        return from_prev, from_next
-    ops = []
-    if s > 0:
-        prev = mesh.spatial_rank(s - 1)
-        ops += [dist.P2POp(dist.isend, own[:, :halo].contiguous(), prev,
-                           mesh.spatial_group),
-                dist.P2POp(dist.irecv, from_prev, prev, mesh.spatial_group)]
-    if s < n - 1:
-        nxt = mesh.spatial_rank(s + 1)
-        ops += [dist.P2POp(dist.isend, own[:, own.shape[1] - halo:].contiguous(),
-                           nxt, mesh.spatial_group),
-                dist.P2POp(dist.irecv, from_next, nxt, mesh.spatial_group)]
+        return own.new_zeros(shape), own.new_zeros(shape)
+    wire = "cpu" if own.is_cuda and dist.get_backend(mesh.spatial_group) == "gloo" \
+        else own.device
+    ops, received = [], {}
+    for side, peer, rows in ((-1, s - 1, own[:, :halo]),
+                             (1, s + 1, own[:, own.shape[1] - halo:])):
+        if 0 <= peer < n:
+            rank = mesh.spatial_rank(peer)
+            received[side] = torch.empty(shape, dtype=own.dtype, device=wire)
+            ops += [dist.P2POp(dist.isend, rows.to(wire).contiguous(), rank,
+                               mesh.spatial_group),
+                    dist.P2POp(dist.irecv, received[side], rank, mesh.spatial_group)]
     for request in dist.batch_isend_irecv(ops):
         request.wait()
-    return from_prev, from_next
+    return tuple(received[side].to(own.device) if side in received
+                 else own.new_zeros(shape) for side in (-1, 1))
 
 
 class _AllReduceSum(torch.autograd.Function):

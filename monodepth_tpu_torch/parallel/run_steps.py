@@ -8,13 +8,19 @@
     # or under torchrun, one process per card
     torchrun --nproc_per_node 4 -m monodepth_tpu_torch.parallel.run_steps \\
         --data 2 --spatial 2 --out OUT
+    # two ranks sharing one card: gloo, staged through host memory
+    python -m monodepth_tpu_torch.parallel.run_steps --data 2 --spawn \\
+        --backend gloo --out OUT
 
 Counterpart of the JAX package's multi-process worker
 (tests/distributed_worker.py). Each rank joins the group
 (`init_distributed`), builds the mesh, builds the model from `cfg.seed`,
 broadcasts rank 0's state, and runs `--steps` train steps and one eval
 step on `make_planar_scenes` batches (ground truth depth drawn from the
-seed), each rank on its piece (`shard_batch`). It writes OUT/rank<r>.json:
+seed; with the stereo frame "s" in `--frame_ids`, the +1 view again with
+its baseline as `stereo_T`), each rank on its piece (`shard_batch`). Every
+pose wiring runs: `--pose_type`, `--frame_ids` and `--pose_frames` go to
+the config with the other config flags. It writes OUT/rank<r>.json:
 the losses, the last train and the eval metrics, per-module gradient
 norms after the first step, a parameter checksum, the launches of K1, K2,
 both forms of K3 and K1-bwd (`grid_vjp`), and the spatial warps on slabs
@@ -86,8 +92,8 @@ def free_port() -> int:
 
 def _child(target: Callable, rank: int, world: int, port: int, arg) -> None:
     os.environ.update({"RANK": str(rank), "LOCAL_RANK": str(rank),
-                       "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
-                       "MASTER_PORT": str(port)})
+                       "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)})
     # the ranks share the host's cores (torchrun gives each one thread)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     target(arg)
@@ -123,22 +129,34 @@ def spawn(target: Callable, world: int, arg, deadline_s: float) -> List[int]:
     return [p.exitcode for p in procs]
 
 
+# make_planar_scenes renders the views (0, -1, +1); "s" is the +1 view again
+_SCENE_VIEW = {0: 0, -1: 1, 1: 2, "s": 2}
+
+
 def host_batches(cfg: Config, n: int, dtype) -> List[Dict[str, np.ndarray]]:
-    """`n` global batches of `make_planar_scenes` from `cfg.seed`, with
-    sparse ground truth depth [B, 375, 1242]; float fields in `dtype`."""
+    """`n` global batches of `make_planar_scenes` from `cfg.seed`, their
+    frames in `cfg.frame_ids`' order, with sparse ground truth depth [B,
+    375, 1242] and, with the stereo frame "s", `stereo_T`: identity with
+    the scene's baseline `gt_tx` at [0, 3]. Float fields in `dtype`."""
     B = cfg.batch
     scenes = make_planar_scenes(n * B, cfg.height, cfg.width, seed=cfg.seed)
+    frames = scenes["frames"][:, [_SCENE_VIEW[f] for f in cfg.frame_ids]]
     rng = np.random.default_rng(cfg.seed)
     out = []
     for i in range(n):
         items = slice(i * B, (i + 1) * B)
         gt = rng.uniform(0, 80, (B, 375, 1242))
         gt = (gt * (rng.random(gt.shape) < 0.05)).astype(np.float32)
-        out.append({"frames": scenes["frames"][items],
-                    "jitter": scenes["jitter"][items].astype(dtype),
-                    "K": scenes["K"][items].astype(dtype),
-                    "inv_K": scenes["inv_K"][items].astype(dtype),
-                    "depth_gt": gt})
+        batch = {"frames": frames[items],
+                 "jitter": scenes["jitter"][items].astype(dtype),
+                 "K": scenes["K"][items].astype(dtype),
+                 "inv_K": scenes["inv_K"][items].astype(dtype),
+                 "depth_gt": gt}
+        if "s" in cfg.frame_ids:
+            stereo_T = np.tile(np.eye(4), (B, 1, 1))
+            stereo_T[:, 0, 3] = scenes["gt_tx"][items]
+            batch["stereo_T"] = stereo_T.astype(dtype)
+        out.append(batch)
     return out
 
 
@@ -197,7 +215,7 @@ def run_rank(args) -> None:
     cfg = options(args.config)
     if args.threads:
         torch.set_num_threads(args.threads)
-    init_distributed(args.device, args.timeout)
+    init_distributed(args.device, args.timeout, args.backend)
     mesh = make_mesh(args.data, args.spatial, args.device)
     world = warm_collectives(mesh)
     device = mesh.device
@@ -226,6 +244,9 @@ def run_rank(args) -> None:
     seconds = time.perf_counter() - t0
     report = {
         "rank": mesh.rank, "mesh": mesh.shape, "device": str(device),
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "pose_type": cfg.pose_type, "frame_ids": [str(f) for f in cfg.frame_ids],
+        "pose_frames": cfg.pose_frames,
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
         "world_on_device": world, "losses": losses,
@@ -263,6 +284,9 @@ def parse(argv: Sequence[str] | None = None):
     p.add_argument("--data", type=int, default=0)
     p.add_argument("--spatial", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="default: nccl on cards (one rank a card), gloo on the "
+                        "CPU; gloo on cards lets ranks share a card")
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--out", required=True)
     p.add_argument("--spawn", action="store_true",

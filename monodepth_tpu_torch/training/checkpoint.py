@@ -9,6 +9,11 @@ state_dict (Adam's moments and step counts), `TrainState.step`,
 `TrainState.seed` and the epoch, so a resumed run continues bit for bit.
 The per-module export `<module><epoch + 1>.npz` is written in the JAX
 package's npz layout, which both packages' `model_test` read.
+
+In a process group (the Trainer on a mesh) the state is replicated, so
+rank 0 alone writes, exports and prunes (JAX `checkpoint.py:91, 135`), and
+every rank waits at a barrier until the files are committed before it
+goes on, so no rank reads a file that is still being written.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import threading
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from monodepth_tpu_torch.training.state import TrainState
 from monodepth_tpu_torch.utils.jax_export import jax_variables
@@ -37,6 +43,15 @@ def _host_copy(value: Any) -> Any:
     return value
 
 
+def _grouped() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _barrier() -> None:
+    if _grouped():
+        dist.barrier()
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep: int = 0, async_save: bool = False):
         """`keep` > 0 keeps only the newest `keep` states (and their module
@@ -49,8 +64,14 @@ class Checkpointer:
         save a torn state. At most one write is in flight: a new `save`
         (or `wait()`) joins the previous one first. Every file is written
         to a temporary name and renamed, so an interrupted run loses at
-        most the newest checkpoint."""
+        most the newest checkpoint.
+
+        In a process group only rank 0 writes: its snapshot, its write
+        thread. A synchronous `save` and `export_modules` end at a barrier
+        after rank 0's files are committed; with `async_save` the barrier
+        is in `wait()`, after rank 0 has joined its write."""
         self.directory = os.path.abspath(directory)
+        self._writer = not _grouped() or dist.get_rank() == 0
         self.keep = keep
         os.makedirs(self.directory, exist_ok=True)
         self._async = async_save
@@ -84,9 +105,13 @@ class Checkpointer:
             raise RuntimeError("the background checkpoint write failed") from error
 
     def save(self, epoch: int, state: TrainState) -> str:
-        """Write the full state of `epoch`; returns its path."""
-        self._join()
+        """Write the full state of `epoch` (rank 0); returns its path."""
         path = self._path(epoch)
+        if not self._writer:
+            if not self._async:
+                _barrier()
+            return path
+        self._join()
         snapshot = {"model": _host_copy(state.model.state_dict()),
                     "optimizer": _host_copy(state.optimizer.state_dict()),
                     "step": int(state.step), "seed": int(state.seed),
@@ -101,19 +126,24 @@ class Checkpointer:
         # the in-flight write is not yet under its final name, so this
         # prunes the generations before it; `wait()` prunes after it
         self._prune()
+        if not self._async:
+            _barrier()
         return path
 
     def wait(self) -> None:
-        """Join any in-flight write (raising its error), then prune."""
-        self._join()
-        self._prune()
+        """Join any in-flight write (raising its error), then prune; in a
+        process group every rank then waits at a barrier."""
+        if self._writer:
+            self._join()
+            self._prune()
+        _barrier()
 
     def _epochs(self) -> list[int]:
         return sorted(int(m.group(1)) for name in os.listdir(self.directory)
                       if (m := re.fullmatch(r"state_(\d+)\.pt", name)))
 
     def _prune(self) -> None:
-        if self.keep <= 0:
+        if self.keep <= 0 or not self._writer:
             return
         for old in self._epochs()[:-self.keep]:
             os.remove(self._path(old))
@@ -123,23 +153,47 @@ class Checkpointer:
                     os.remove(os.path.join(self.directory, name))
 
     def latest_epoch(self) -> Optional[int]:
+        """The newest checkpoint's epoch, None without one. In a process
+        group every rank gets rank 0's answer (one broadcast), so the ranks
+        take the same branch on it even where their views of the directory
+        differ."""
         epochs = self._epochs()
-        return epochs[-1] if epochs else None
+        latest = epochs[-1] if epochs else None
+        if _grouped():
+            agreed = [latest]
+            dist.broadcast_object_list(agreed, src=0)
+            latest = agreed[0]
+        return latest
 
     def restore(self, state: TrainState, epoch: int | None = None
                 ) -> tuple[TrainState, int]:
-        """Load checkpoint `epoch` (default: the latest) into `state` in
-        place: the model's parameters and buffers, the optimizer, step
-        and seed. Returns (state, epoch restored). The file is read to the
-        CPU (`weights_only`): `load_state_dict` copies the model's tensors
-        onto its device, and the optimizer moves its moments onto the
-        parameters' device and keeps Adam's step counts on the host, where
-        a new Adam keeps them."""
+        """Load checkpoint `epoch` (default: the latest, as rank 0 names
+        it) into `state` in place: the model's parameters and buffers, the
+        optimizer, step and seed. Returns (state, epoch restored). The file
+        is read to the CPU (`weights_only`): `load_state_dict` copies the
+        model's tensors onto its device, and the optimizer moves its
+        moments onto the parameters' device and keeps Adam's step counts on
+        the host, where a new Adam keeps them. In a process group the ranks
+        agree on the read (one all-gather) before any of them goes on: if
+        one rank cannot read the file, every rank raises, naming it."""
         if epoch is None:
             epoch = self.latest_epoch()
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
-        data = torch.load(self._path(epoch), map_location="cpu", weights_only=True)
+        data, failure = None, None
+        try:
+            data = torch.load(self._path(epoch), map_location="cpu", weights_only=True)
+        except Exception as exc:  # noqa: BLE001 - the peers must hear of it
+            failure = exc
+        if _grouped():
+            failures = [None] * dist.get_world_size()
+            dist.all_gather_object(failures, None if failure is None else repr(failure))
+            failed = {r: f for r, f in enumerate(failures) if f is not None}
+            if failed:
+                raise RuntimeError(f"restore of epoch {epoch} failed on rank(s) "
+                                   f"{failed}") from failure
+        elif failure is not None:
+            raise failure
         state.model.load_state_dict(data["model"])
         state.optimizer.load_state_dict(data["optimizer"])
         state.step, state.seed = data["step"], data["seed"]
@@ -149,7 +203,11 @@ class Checkpointer:
         """`<module><epoch + 1>.npz` for each top-level module, in the JAX
         package's layout (reference: `<key><epoch + 1>.pt`,
         logger.py:60-66): {"params"} and, for the encoders,
-        {"batch_stats"}."""
+        {"batch_stats"}. Rank 0 writes; every rank then waits at a
+        barrier."""
+        if not self._writer:
+            _barrier()
+            return
         model = state.model
         variables = jax_variables(model.state_dict(), model.encoder.num_layers,
                                   model.scales)
@@ -159,3 +217,4 @@ class Checkpointer:
             if name in stats:
                 out["batch_stats"] = stats[name]
             save_npz(os.path.join(self.directory, f"{name}{epoch + 1}.npz"), out)
+        _barrier()

@@ -2,8 +2,14 @@
 
 Counterpart of `monodepth_tpu.training.loop` (reference: model_train.py
 :25-97, model_tool/loader.py:16-118, model_tool/logger.py:16-72), on one
-device (the card unless the caller names another):
+device (the card unless the caller names another), or on a process mesh
+when the process group holds more than one process (`init_distributed`,
+as `python -m monodepth_tpu_torch.model_train` does under torchrun):
 
+- the mesh is data-parallel over every process, as JAX's Trainer mesh:
+  each rank's `Loader` loads its contiguous slice of every global batch,
+  the state is replicated from rank 0, and the mesh steps average the
+  gradients and normalize batch norm over the global batch;
 - the batches of `Loader` go through `prefetch_to_device`, so the copies
   to the card overlap the step that runs;
 - the metrics accumulate on the device and are fetched once per flush
@@ -11,8 +17,9 @@ device (the card unless the caller names another):
 - each epoch prints the reference's 8-metric table, appends a record to
   `metrics.jsonl` and, at the end, the curves are saved as .npy per split;
 - a full-state checkpoint every `ckpt_every` epochs, at the last epoch and
-  on SIGTERM or SIGINT, with `--resume`; module exports in the JAX
-  package's npz layout.
+  on SIGTERM or SIGINT (on any rank: the ranks agree at the epoch's end),
+  with `--resume`; module exports in the JAX package's npz layout; rank 0
+  alone writes files and prints.
 
 `--warp_guard` and `--warp_auto_swap` are accepted and ignored (see
 `config.py`); `warp_span` and `warp_span_max` still go to `metrics.jsonl`.
@@ -30,6 +37,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.dataset import KittiDataset
@@ -38,12 +46,12 @@ from monodepth_tpu_torch.data.pipeline import Loader, prefetch_to_device
 from monodepth_tpu_torch.evaluation import eigen
 from monodepth_tpu_torch.losses.metrics import METRIC_NAMES
 from monodepth_tpu_torch.models.monodepth import Monodepth
+from monodepth_tpu_torch.parallel.mesh import agree_max, make_mesh, replicate, warm_collectives
 from monodepth_tpu_torch.training.checkpoint import Checkpointer
 from monodepth_tpu_torch.training.state import (
     build_model,
     copy_into,
     create_state,
-    resolve_device,
     step_decay_schedule,
 )
 from monodepth_tpu_torch.training.step import (
@@ -139,18 +147,29 @@ class _Meter:
 
 class Trainer:
     """`Trainer(options()).train()`, the reference's entry contract
-    (model_train.py:100-101), on one device: `device` defaults to the card.
+    (model_train.py:100-101): `device` defaults to the card (in a process
+    group, the card `init_distributed` made current). The mesh is
+    {data: every process}: `--data_parallel` is 0 or the group's size.
     `train_files` and `valid_files` default to the split's lists."""
 
     def __init__(self, cfg: Config, device=None,
                  train_files: Sequence[str] | None = None,
                  valid_files: Sequence[str] | None = None):
         self.cfg = cfg = cfg.validate()
-        if cfg.data_parallel > 1:
-            raise NotImplementedError(
-                f"--data_parallel {cfg.data_parallel}: the Trainer on a process "
-                "mesh is ROADMAP 6f; the Trainer runs on one device (0 or 1)")
-        self.device = resolve_device(device)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if cfg.data_parallel not in (0, world):
+            raise ValueError(
+                f"--data_parallel {cfg.data_parallel}: the Trainer's mesh covers "
+                f"every process of the group ({world}); pass 0 or {world}")
+        self.mesh = make_mesh(cfg.data_parallel or world, 1, device)
+        self.device = self.mesh.device
+        self.main = self.mesh.rank == 0  # prints and writes
+        warm_collectives(self.mesh)
+        # the batch splits over the data axis
+        if cfg.batch % self.mesh.data:
+            raise ValueError(f"global batch {cfg.batch} not divisible by the "
+                             f"mesh's data axis ({self.mesh.data})")
+        step_mesh = self.mesh if self.mesh.size > 1 else None
 
         split_dir = os.path.join(cfg.splits, cfg.datatype)
         if train_files is None:
@@ -172,8 +191,9 @@ class Trainer:
                                           **ds_args)
         loader_args = dict(batch_size=cfg.batch, num_workers=cfg.num_workers,
                            seed=cfg.seed, drop_last=True,
-                           prefetch_batches=cfg.prefetch, process_index=0,
-                           process_count=1)
+                           prefetch_batches=cfg.prefetch,
+                           process_index=self.mesh.data_index,
+                           process_count=self.mesh.data)
         self.train_loader = Loader(self.train_dataset, shuffle=True, **loader_args)
         self.valid_loader = Loader(self.valid_dataset, shuffle=False, **loader_args)
 
@@ -181,9 +201,10 @@ class Trainer:
         load_pretrained(cfg, self.model)
         self.state = create_state(cfg, self.model,
                                   steps_per_epoch=len(self.train_loader))
+        replicate(self.mesh, self.state)
         make = make_train_multi_step if cfg.steps_per_call > 1 else make_train_step
-        self.train_step = make(self.model, cfg, self.device)
-        self.eval_step = make_eval_step(self.model, cfg, self.device)
+        self.train_step = make(self.model, cfg, self.device, mesh=step_mesh)
+        self.eval_step = make_eval_step(self.model, cfg, self.device, mesh=step_mesh)
 
         self.save_dir = os.path.join(cfg.save_root, cfg.save)
         self.checkpointer = Checkpointer(self.save_dir, keep=cfg.ckpt_keep,
@@ -191,8 +212,9 @@ class Trainer:
         self.start_epoch = 0
         if cfg.resume and self.checkpointer.latest_epoch() is not None:
             _, restored = self.checkpointer.restore(self.state)
+            replicate(self.mesh, self.state)
             self.start_epoch = restored + 1
-            print(f">>> resumed from epoch {restored}")
+            self._log(f">>> resumed from epoch {restored}")
 
         self.history = {split: {k: [] for k in LOG_METRICS}
                         for split in ("train", "valid")}
@@ -201,6 +223,10 @@ class Trainer:
 
         self._eigen = None  # (test lines, ground truths), loaded once
         self._eigen_infer = None
+
+    def _log(self, *args) -> None:
+        if self.main:
+            print(*args)
 
     def close(self) -> None:
         """Shut down the loaders' thread pools (`train` does at its end)."""
@@ -211,16 +237,36 @@ class Trainer:
     def eigen_eval(self) -> Dict[str, float]:
         """The full Eigen test protocol (`evaluation/eigen.py`) on the
         current model (`--eigen_every N`). The test lines and their
-        projected velodyne GT load once and stay cached for the run."""
+        projected velodyne GT load once and stay cached for the run. On a
+        mesh each rank sweeps its `process_slice` of the split and
+        `evaluate_multihost` combines the error sums: the same metrics. A
+        rank that fails before the sweep still joins its all-gather (its
+        peers wait in it), and then every rank raises."""
         cfg = self.cfg
-        if self._eigen is None:
-            lines = readlines(os.path.join(cfg.splits, cfg.datatype, "test_files.txt"))
-            gts = eigen.load_ground_truth(
-                cfg.datapath, lines, cache_dir=os.path.join(cfg.save_root, "gt_cache_eval"))
-            self._eigen = (lines, gts)
-        if self._eigen_infer is None:
-            self._eigen_infer = make_infer_step(self.model, cfg, self.device)
-        lines, gts = self._eigen
+        multi = self.mesh.size > 1
+        failure = None
+        try:
+            if self._eigen is None:
+                lines = readlines(os.path.join(cfg.splits, cfg.datatype,
+                                               "test_files.txt"))
+                if multi:
+                    lines = eigen.process_slice(lines)
+                gts = eigen.load_ground_truth(
+                    cfg.datapath, lines,
+                    cache_dir=os.path.join(cfg.save_root, "gt_cache_eval"))
+                self._eigen = (lines, gts)
+            if self._eigen_infer is None:
+                self._eigen_infer = make_infer_step(self.model, cfg, self.device)
+        except Exception as exc:  # noqa: BLE001 - a rank must reach the all-gather
+            if not multi:
+                raise
+            failure = exc
+        lines, gts = self._eigen if self._eigen is not None else ([], [])
+        if multi:
+            return eigen.evaluate_multihost(cfg, self.model, lines, gts,
+                                            eval_batch=max(cfg.batch, 1),
+                                            num_workers=cfg.num_workers,
+                                            infer=self._eigen_infer, failure=failure)
         disps = eigen.predict_disparities(cfg, self.model, lines,
                                           eval_batch=max(cfg.batch, 1),
                                           num_workers=cfg.num_workers,
@@ -251,8 +297,8 @@ class Trainer:
             if training and cfg.log_every and (step + 1) % cfg.log_every == 0:
                 dt = time.perf_counter() - t0
                 means = meter.means()
-                print(f"    epoch {epoch} step {(step + 1) * K}/{len(loader)} "
-                      f"loss {means['loss']:.4f} ({images / dt:.1f} img/s)")
+                self._log(f"    epoch {epoch} step {(step + 1) * K}/{len(loader)} "
+                          f"loss {means['loss']:.4f} ({images / dt:.1f} img/s)")
         if not meter.count:
             return meter.means()
         if self.device.type == "cuda":
@@ -264,7 +310,10 @@ class Trainer:
     def train(self):
         """Full run: epochs x (train pass + valid pass) + checkpoints
         (reference: model_train.py:54-88). SIGTERM or SIGINT checkpoints
-        and stops at the end of the current epoch. Returns the state."""
+        and stops at the end of the current epoch; on a mesh a signal to
+        any rank stops every rank there (the flag's max over the ranks),
+        so none is left waiting in a collective of the next epoch.
+        Returns the state."""
         cfg = self.cfg
         stop = {"now": False}
 
@@ -279,9 +328,11 @@ class Trainer:
             except ValueError:  # not the main thread
                 pass
         try:
-            print(f">>> devices: 1 ({self.device}; the Trainer runs on one device)")
-            print(f">>> train iters/epoch {len(self.train_loader)}, "
-                  f"valid iters/epoch {len(self.valid_loader)}")
+            self._log(f">>> devices: {self.mesh.size} (mesh {self.mesh.shape}; "
+                      f"{self.device}"
+                      + (f", {dist.get_backend()}" if self.mesh.size > 1 else "") + ")")
+            self._log(f">>> train iters/epoch {len(self.train_loader)}, "
+                      f"valid iters/epoch {len(self.valid_loader)}")
             for epoch in range(self.start_epoch, cfg.epoch):
                 profiler = self._start_profile() \
                     if cfg.profile_dir and epoch == self.start_epoch else None
@@ -290,8 +341,9 @@ class Trainer:
                 if profiler is not None:
                     profiler.stop()
                     os.makedirs(cfg.profile_dir, exist_ok=True)
+                    rank = f"_rank{self.mesh.rank}" if self.mesh.size > 1 else ""
                     profiler.export_chrome_trace(
-                        os.path.join(cfg.profile_dir, f"trace_epoch{epoch}.json"))
+                        os.path.join(cfg.profile_dir, f"trace_epoch{epoch}{rank}.json"))
 
                 for split, log in (("train", train_log), ("valid", valid_log)):
                     for key in LOG_METRICS:
@@ -305,25 +357,29 @@ class Trainer:
                     try:
                         eigen_log = self.eigen_eval()
                     except Exception as exc:  # noqa: BLE001
-                        print(f">>> eigen sweep failed (training continues): "
-                              f"{type(exc).__name__}: {exc}")
-                    if eigen_log:
+                        self._log(f">>> eigen sweep failed (training continues): "
+                                  f"{type(exc).__name__}: {exc}")
+                    if eigen_log and self.main:
                         eigen.print_table(f"eigen test sweep (epoch {epoch + 1})",
                                           eigen_log)
                 sampler = None
                 if "warp_span" in train_log:
                     sampler = "cuda" if cfg.use_pallas else "plain"
-                self._append_jsonl(epoch, train_log, valid_log, eigen_log, sampler)
+                if self.main:
+                    self._append_jsonl(epoch, train_log, valid_log, eigen_log, sampler)
 
+                stop_now = agree_max(self.mesh, float(stop["now"])) > 0
                 if (epoch + 1) % max(cfg.ckpt_every, 1) == 0 \
-                        or epoch == cfg.epoch - 1 or stop["now"]:
+                        or epoch == cfg.epoch - 1 or stop_now:
                     self.checkpointer.save(epoch, self.state)
                     self.checkpointer.export_modules(epoch, self.state)
-                if stop["now"]:
-                    print(f">>> stopped after epoch {epoch + 1}; resume with --resume true")
+                if stop_now:
+                    self._log(f">>> stopped after epoch {epoch + 1}; resume with "
+                              "--resume true")
                     break
             self.checkpointer.wait()  # commit any in-flight async save
-            self._save_curves()
+            if self.main:
+                self._save_curves()
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
@@ -344,6 +400,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _print(self, epoch: int, train_log, valid_log):
+        if not self.main:
+            return
         header = " | ".join(f"{k:>8}" for k in LOG_METRICS)
 
         def row(log):

@@ -423,16 +423,18 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
     return train_step
 
 
-def make_train_multi_step(model: Monodepth, cfg: Config, device=None):
+def make_train_multi_step(model: Monodepth, cfg: Config, device=None,
+                          mesh: Mesh | None = None):
     """K train steps per call (`--steps_per_call`; JAX: `lax.scan` of the
     step body over a [K, B, ...] superbatch). Returns
     multi_step(state, batches) -> {name: [K] tensor}: `batches` is a
-    sequence of K consecutive batches, and the K steps run in order, each
-    as `make_train_step`'s (same noise keys, same updates), so K calls of
-    that step give the same state and metrics. The batches are not
-    stacked: eagerly that would only add a copy. Capturing the K steps in
-    a CUDA graph, which needs them in static buffers, is later work."""
-    train_step = make_train_step(model, cfg, device)
+    sequence of K consecutive batches (this rank's pieces, with `mesh`),
+    and the K steps run in order, each as `make_train_step`'s (same noise
+    keys, same updates), so K calls of that step give the same state and
+    metrics. The batches are not stacked: eagerly that would only add a
+    copy. Capturing the K steps in a CUDA graph, which needs them in
+    static buffers, is later work."""
+    train_step = make_train_step(model, cfg, device, mesh=mesh)
 
     def multi_step(state: TrainState, batches: Sequence[Mapping[str, Any]]):
         metrics = [train_step(state, batch) for batch in batches]
@@ -471,20 +473,35 @@ def make_eval_step(model: Monodepth, cfg: Config, device=None,
     return eval_step
 
 
+class DepthInference(torch.nn.Module):
+    """Depth-only inference as a module: images [B, H, W, 3] in [0, 1] ->
+    scaled disparity [B, H, W], converted with the eval depth range 1e-3
+    to 80 whatever the training range (reference: model_test.py:80-83),
+    the network under bf16 autocast with --precision bf16. The infer step
+    runs it, and `tools/export_inference.py` exports it."""
+
+    def __init__(self, model: Monodepth, cfg: Config):
+        super().__init__()
+        self.model = model
+        self.bf16 = cfg.precision == "bf16"
+
+    def forward(self, images: Tensor) -> Tensor:
+        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=self.bf16):
+            disps = self.model.depth(images)
+        scaled_disp, _ = disparity_to_depth(disps[0].float(), 1e-3, 80.0)
+        return scaled_disp[..., 0]
+
+
 def make_infer_step(model: Monodepth, cfg: Config, device=None):
     """Depth-only batched inference: infer(images [B, H, W, 3] in [0, 1])
-    -> scaled disparity [B, H, W], converted with the eval depth range
-    1e-3 to 80 whatever the training range (reference: model_test.py:80-83).
-    `device` defaults to the card."""
+    -> scaled disparity [B, H, W] (`DepthInference`, the model in eval
+    mode). `device` defaults to the card."""
     device = resolve_device(device)
+    module = DepthInference(model, cfg)
 
     @torch.inference_mode()
     def infer(images) -> Tensor:
         model.eval()
-        images = torch.as_tensor(images).to(device, torch.float32)
-        with _autocast(cfg, device):
-            disps = model.depth(images)
-        scaled_disp, _ = disparity_to_depth(disps[0].float(), 1e-3, 80.0)
-        return scaled_disp[..., 0]
+        return module(torch.as_tensor(images).to(device, torch.float32))
 
     return infer

@@ -575,3 +575,97 @@ def test_remat_train_step_launches_k1_twice_a_warp(cuda, tmp_path):
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6)
     for (name, a), b in zip(state.model.named_buffers(), twin.model.buffers()):
         assert torch.equal(a, b), name
+
+
+def _gloo_card_rank(out_dir) -> None:
+    """One of 2 gloo ranks sharing the card (`run_steps.spawn` target):
+    the halo exchange of a {spatial: 2} mesh, an all-gather and the stop
+    flag's max, on CUDA tensors; writes out_dir/rank<r>.pt."""
+    import os
+
+    import torch.distributed as dist
+
+    from monodepth_tpu_torch.parallel.mesh import (
+        agree_max,
+        all_gather_cat,
+        exchange_halo,
+        init_distributed,
+        make_mesh,
+    )
+
+    init_distributed("cuda", timeout_s=60, backend="gloo")
+    mesh = make_mesh(1, 2, "cuda")
+    rows = torch.arange(2 * 6 * 4, dtype=torch.float32, device=mesh.device) \
+        .reshape(2, 6, 4) + 100 * mesh.rank
+    prev, nxt = exchange_halo(rows, 2, mesh)
+    gathered = all_gather_cat(rows, mesh.spatial_group, 1)
+    flag = agree_max(mesh, float(mesh.rank == 1))
+    torch.save({"device": str(mesh.device), "backend": dist.get_backend(),
+                "prev": prev.cpu(), "next": nxt.cpu(), "gathered": gathered.cpu(),
+                "flag": flag}, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gloo_ranks_share_one_card(cuda, tmp_path):
+    """`init_distributed(backend="gloo")` puts 2 ranks on one card: the
+    halo rows (staged through host memory, as gloo sends host tensors
+    only), the all-gather and the all-reduced stop flag arrive on the
+    card as on the CPU."""
+    from monodepth_tpu_torch.parallel.run_steps import spawn
+
+    codes = spawn(_gloo_card_rank, 2, str(tmp_path), deadline_s=240)
+    assert codes == [0, 0], codes
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    rows = [torch.arange(48, dtype=torch.float32).reshape(2, 6, 4) + 100 * r
+            for r in range(2)]
+    for r, got in enumerate(ranks):
+        assert got["device"] == f"cuda:{r % torch.cuda.device_count()}"
+        assert got["backend"] == "gloo" and got["flag"] == 1.0
+        assert torch.equal(got["gathered"], torch.cat(rows, 1))
+    assert torch.equal(ranks[0]["next"], rows[1][:, :2])
+    assert torch.equal(ranks[1]["prev"], rows[0][:, 4:])
+    assert not ranks[0]["prev"].any() and not ranks[1]["next"].any()
+
+
+@pytest.mark.gpu
+def test_nccl_refuses_more_ranks_than_cards(cuda, monkeypatch):
+    """NCCL puts one rank on each card: more local ranks than cards raise
+    before any process group starts."""
+    import torch.distributed as dist
+
+    from monodepth_tpu_torch.parallel.mesh import init_distributed
+
+    n = torch.cuda.device_count() + 1
+    monkeypatch.setenv("WORLD_SIZE", str(n))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(n))
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    with pytest.raises(ValueError, match="one rank on each card"):
+        init_distributed("cuda")
+    assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_export_inference_on_the_card(cuda):
+    """The `torch.export` program of the bf16 infer step, built on the
+    card, equals `make_infer_step` at max |diff| <= 1e-3 · max |disp|, for
+    two batch sizes (dynamic batch)."""
+    from monodepth_tpu_torch.tools.export_inference import build_exported
+    from monodepth_tpu_torch.training.step import make_infer_step
+
+    cfg = Config(height=64, width=128, scales=(0, 1), weight_init=False)
+    model = build_model(cfg)
+    program = build_exported(cfg, model).module()
+    infer = make_infer_step(model, cfg)
+    for b in (1, 5):
+        images = torch.rand(b, 64, 128, 3, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(b))
+        with torch.no_grad():
+            got = program(images)
+        want = infer(images)
+        assert got.shape == (b, 64, 128) and got.device.type == "cuda"
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())

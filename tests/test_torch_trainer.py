@@ -8,7 +8,7 @@ kernels' plain versions (`use_pallas`).
 - `Checkpointer`: round trip, `keep` pruning with the module exports, an
   async save that snapshots before it returns;
 - `_Meter`, `load_pretrained` (.pth, .npz, no file), `--steps_per_call`,
-  the SIGTERM checkpoint, `--data_parallel` above 1;
+  the SIGTERM checkpoint, `--data_parallel` above the one process;
 - `python -m monodepth_tpu_torch.model_train --device cpu` trains,
   checkpoints and exports, and `model_test` scores the export;
 - the convergence proof tool at a tiny size."""
@@ -361,7 +361,9 @@ def test_sigterm_checkpoints_and_stops_after_the_epoch(tree, tmp_path):
 
 
 def test_data_parallel_above_one_raises(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="6f"):
+    """In one process the mesh is that process: `--data_parallel 2` does
+    not fit it (tests/test_torch_trainer_mesh.py runs the mesh)."""
+    with pytest.raises(ValueError, match="covers every process of the group"):
         Trainer(_cfg(tree, tmp_path, data_parallel=2), device="cpu")
 
 
