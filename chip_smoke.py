@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and run the PyTorch port on one CUDA card, and check it.
 
-    python3 chip_smoke.py    # every phase below, on one card or more
+    python3 chip_smoke.py                # every phase below, on one card or more
+    python3 chip_smoke.py --step-clock   # this checkout's train and eval step times
 
 Run from a checkout of the repository on a host with one NVIDIA Hopper
 card and the CUDA toolkit. It exits non-zero, and prints no result, when
@@ -172,10 +173,13 @@ Phases, each fatal on failure:
       count set to 0 just before `train()`: on every rank K1 and K1-bwd 8
       per train step, K2 8 per validation step, the others 0, no plain
       version called; rank 0 alone writes 2 states, 8 module exports and
-      2 records; the per-step losses equal phase 9b's one-process Trainer
-      within the one card's own bf16-vs-f32 gap (an f32 one-process
-      Trainer here; at least 1e-4), as phase 7 holds it; the img/s of
-      both beside phase 9d's;
+      2 records; an f32 mesh Trainer's losses equal an f32 one-process
+      Trainer's, the first two at rtol 1e-5 and all within the one
+      process's bf16-vs-f32 gap; the bf16 losses equal phase 9b's
+      one-process Trainer's, the first two at rtol 1e-4 and all within
+      that gap plus the one process's capturable-vs-host-rate Adam gap (a
+      one-process Trainer with the host-rate Adam here; at least 1e-4);
+      the img/s of both beside phase 9d's;
    b. `python -m monodepth_tpu_torch.model_train` under torchrun (cuDNN
       deterministic) for 1 epoch and then `--resume true`: its epoch-2
       state file equals 11a's (max |diff| 0), the records but their times;
@@ -190,7 +194,35 @@ Phases, each fatal on failure:
    |disp|), `infer_image` on one of the tree's images (its PNG at the
    image's size, finite positive depth), `export_poses` on the test split
    (finite [pairs + 1, 4, 4] poses) and `evaluate_poses` on them;
-13. the `kernels` JSON line, then the last line
+13. the one-dispatch steps (`training/graphs.py`) at the headline config,
+   each captured step against `graph=False` from the same state with cuDNN
+   deterministic, the launch counts set to 0 just before each path:
+   a. infer at batch 12 and at 5 (two captures): max |diff| 0;
+   b. 3 eval calls (warm-up, capture, replay) against 3 eager ones with
+      the same indexes: losses and metrics max |diff| 0, K2 24 launches,
+      8 in a replay alone, and `torch.profiler` over one replay shows 8
+      K2 kernels;
+   c. 3 train calls against 3 eager steps from a deep copy: state (the
+      parameters, buffers and Adam) and metrics max |diff| 0, K1 and K1-bwd
+      24 each, Adam's device step 3, and `torch.profiler` over one replay
+      shows 8 K1 and 8 K1-bwd kernels; `--steps_per_call 2` (3 calls:
+      the warm-up, then 2 replays) against 6 eager steps, max |diff| 0,
+      16 K1 and 16 K1-bwd a replay; `--remat`, 3 calls against 3 eager
+      steps, max |diff| 0, K1 16 and K1-bwd 8 a replay;
+   d. 3 eager steps with capturable Adam, and a twin that steps the
+      host-rate Adam of before on the same gradients: per-module parameter
+      rel-L2 <= 1e-6, and the eval loss of each in f32 (TF32 off) rtol
+      1e-5;
+   e. host ms (median of 10), device-busy ms (`torch.profiler` over 3
+      replays) and idle share of the captured train step (K=1 and K=2),
+      eval step and infer batch, beside the same steps with `graph=False`
+      and phase 5a's figure, with each path's peak memory; the Trainer's
+      img/s on phase 9d's epochs (decoded and cached frames), captured and
+      with `graph=False`;
+   f. a captured train step refuses another state; a restore under a
+      capture captures again and equals the uninterrupted run (max |diff|
+      0);
+14. the `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    K3's launches there are those of phase 7's last spatial mesh, the
    `separate` wiring in bf16 (rank 0); "launches_on" says which. K1,
@@ -199,7 +231,17 @@ Phases, each fatal on failure:
    Trainer run ("launches_trainer_path"), in phase 10a's kernel steps of
    the four wirings ("launches_wirings_path") and on rank 0 of phase 11a's
    mesh Trainer ("launches_mesh_trainer_path"); the warp kernels also
-   summed over phase 7's runs on rank 0 ("launches_mesh_steps_path").
+   summed over phase 7's runs on rank 0 ("launches_mesh_steps_path"), and
+   K1, K1-bwd and K2 the kernels `torch.profiler` saw in one replay of
+   phase 13c's train graph and 13b's eval graph ("launches_graphs_path").
+
+Every step on one card without a mesh runs as a CUDA graph from its
+second call on (`graph=None`), so phases 5, 8, 9, 10 and 12 drive the
+captured steps; a kernel's launches on a replayed path are counted by the
+graph (`training/graphs.py`: the launches its capture recorded, per
+replay), kernel executions as before, and 13b and 13c hold that count
+against the kernels a profile of one replay shows. The mesh steps (phases
+7 and 11) stay eager.
 """
 
 from __future__ import annotations
@@ -1261,6 +1303,10 @@ def phase_multi_gpu(torch, card):
     its bf16 convolutions elsewhere, and bf16 keeps ~3 digits. Returns (the K3 launches of rank 0 of the last spatial mesh's
     `separate` bf16 run, what they were counted on, every kernel's launches
     on rank 0 summed over the runs)."""
+    import gc
+
+    gc.collect()  # phase 5's graphs and tensors: give their memory back to
+    torch.cuda.empty_cache()  # the card before six processes share it
     count = torch.cuda.device_count()
     if count >= 2:
         backend = "nccl"
@@ -1754,6 +1800,15 @@ class counted:
             setattr(module, name, fn)
 
 
+def host_rate_adam(state):
+    """The Adam of the CPU, and of every path before the steps were
+    captured: a host float rate and host step counts, not capturable."""
+    import torch
+
+    return torch.optim.Adam(state.model.parameters(), lr=state.schedule(state.step),
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
 def record_losses(trainer) -> list:
     """The loss of every train step `trainer` takes from now on, in order
     (its train step wrapped; one host fetch a step)."""
@@ -2084,6 +2139,7 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
     from monodepth_tpu_torch.evaluation import eigen
     from monodepth_tpu_torch.parallel.run_steps import spawn
     from monodepth_tpu_torch.training import Trainer
+    from monodepth_tpu_torch.training.step import make_train_step
 
     t0 = time.perf_counter()
     shutil.rmtree(PHASE11, ignore_errors=True)
@@ -2122,25 +2178,60 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
     check([r["epoch"] for r in records] == [0, 1] and all("eigen" in r for r in records),
           f"metrics.jsonl: {len(records)} records")
 
-    # the mesh's losses against phase 9's one-process Trainer (bf16), within
-    # the one card's own bf16-vs-f32 gap (an f32 one-process Trainer here)
+    # the mesh's losses against phase 9's one-process Trainer (bf16), with
+    # bounds read from the one process only, never from the mesh's own run:
+    # - f32: an f32 mesh Trainer against an f32 one-process Trainer, the
+    #   first two losses (before any update, and after one) at rtol 1e-5
+    #   (phase 7's f32 bound), every step within the one process's
+    #   bf16-vs-f32 gap (the bound the bf16 check had before Adam was
+    #   capturable);
+    # - bf16: the first two at rtol 1e-4 (JAX's data-parallel test), every
+    #   step within the one process's bf16-vs-f32 gap plus how far the
+    #   capturable Adam of every card path moved the one process from the
+    #   host-rate Adam that gap was first read under (a one-process bf16
+    #   Trainer with the host-rate Adam here). Adam's early steps (lr·sign(g)
+    #   where |g| is small) amplify a last-bit difference to ~1e-3 in a few
+    #   steps, so a trajectory's rounding gap is a reading, not a law
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         f32 = Trainer(Config(**dict(fields, save="one_f32", precision="f32",
                                     data_parallel=0, eigen_every=0)))
         f32_losses = record_losses(f32)
         f32.train()
+        host = Trainer(Config(**dict(fields, save="one_host_adam", data_parallel=0,
+                                     eigen_every=0)))
+        host.state.optimizer = host_rate_adam(host.state)
+        host.train_step = make_train_step(host.model, host.cfg, host.device, graph=False)
+        host_losses = record_losses(host)
+        host.train()
     finally:
         torch.backends.cudnn.deterministic = False
-    one = one_process["losses"]
-    rel = [abs(a - b) / abs(b) for a, b in zip(reports[0]["losses"], one)]
-    gap = max(abs(a - b) / abs(b) for a, b in zip(one, f32_losses))
-    tol = max(1e-4, gap)
+    del f32, host
+    torch.cuda.empty_cache()  # the card is the two ranks' next
+    f32_out = os.path.join(PHASE11, "ranks_f32")
+    os.makedirs(f32_out)
+    codes = spawn(_mesh_trainer_rank, 2, (dict(fields, save="mesh_f32", precision="f32",
+                                               eigen_every=0), backend, f32_out), 600)
+    check(codes == [0, 0], f"f32 mesh Trainer rank exit codes {codes}")
+    mesh_f32 = json.load(open(os.path.join(f32_out, "rank0.json")))["losses"]
+
+    def rels(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    one, mesh = one_process["losses"], reports[0]["losses"]
+    rel, rel_f32 = rels(mesh, one), rels(mesh_f32, f32_losses)
+    gap = max(rels(one, f32_losses))
+    adam_gap = max(rels(one, host_losses))
+    tol = max(1e-4, gap + adam_gap)
     log(json.dumps({"phase": f"11a, mesh Trainer over {backend}, 2 epochs of 4 + 2 steps, "
                              "640x192 b12 bf16",
-                    "mesh_losses": reports[0]["losses"], "one_process_losses": one,
-                    "one_process_f32_losses": f32_losses, "loss_rel": rel,
-                    "one_card_bf16_vs_f32_loss_rel": gap, "loss_rtol": tol,
+                    "mesh_losses": mesh, "one_process_losses": one,
+                    "one_process_f32_losses": f32_losses, "mesh_f32_losses": mesh_f32,
+                    "one_process_host_rate_adam_losses": host_losses,
+                    "loss_rel": rel, "f32_mesh_vs_one_process_loss_rel": rel_f32,
+                    "one_card_bf16_vs_f32_loss_rel": gap,
+                    "one_card_capturable_vs_host_rate_adam_loss_rel": adam_gap,
+                    "loss_rtol": tol,
                     "launches_per_rank": [r["launches"] for r in reports],
                     "writes": [r["writes"] for r in reports],
                     "mesh_train_img_per_s": [r["train"]["img_per_sec"] for r in records],
@@ -2150,8 +2241,14 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
                     "timing": "host clock over each epoch's 4 train steps (global batch "
                               "12), cuDNN deterministic, a loss fetched each step, both",
                     "card": card}))
-    check(len(one) == len(rel) == 8 and max(rel) <= tol,
-          f"mesh losses vs one process: rel {rel} > {tol}")
+    check(len(one) == len(rel) == len(rel_f32) == len(host_losses) == 8,
+          "mesh and one-process runs of 8 steps")
+    check(max(rel_f32[:2]) <= 1e-5,
+          f"f32 mesh losses vs one process, first two steps: rel {rel_f32[:2]} > 1e-5")
+    check(max(rel_f32) <= gap, f"f32 mesh losses vs one process: rel {rel_f32} > {gap}")
+    check(max(rel[:2]) <= 1e-4,
+          f"mesh losses vs one process, first two steps: rel {rel[:2]} > 1e-4")
+    check(max(rel) <= tol, f"mesh losses vs one process: rel {rel} > {tol}")
 
     # 11b: model_train under torchrun (cuDNN deterministic, as 11a), 1 epoch
     # and a resume, against 11a
@@ -2493,6 +2590,323 @@ def phase_wirings(torch, ws, card, step5a_ms, busy5a_ms) -> dict:
     return launches
 
 
+PHASE13 = os.path.join(HERE, "build", "phase13")
+
+
+def metrics_diff(a: dict, b: dict) -> float:
+    """max |a - b| over two steps' metric dicts (inf where the keys differ)."""
+    if a.keys() != b.keys():
+        return float("inf")
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def trainer_rate(torch, cfg, train_files, graph: bool) -> float:
+    """The Trainer's train img/s in the second of 2 epochs (phase 9d's
+    measure), its steps captured (the default) or eager (`graph=False`)."""
+    from monodepth_tpu_torch.training import Trainer
+    from monodepth_tpu_torch.training.step import make_eval_step, make_train_step
+
+    trainer = Trainer(cfg, train_files=train_files)
+    if not graph:
+        trainer.train_step = make_train_step(trainer.model, trainer.cfg, trainer.device,
+                                             graph=False)
+        trainer.eval_step = make_eval_step(trainer.model, trainer.cfg, trainer.device,
+                                           graph=False)
+    trainer.train()
+    return _records(trainer.save_dir)[-1]["train"]["img_per_sec"]
+
+
+def phase_graphs(torch, ws, root, splits, train_lines, card, step5a_ms, busy5a_ms):
+    """Phase 13: the one-dispatch steps at the headline config (640x192,
+    b12, bf16, ResNet-18, `separate`). Returns the kernels of K1, K1-bwd
+    and K2 that `torch.profiler` saw in one replay of 13c's train graph and
+    of 13b's eval graph."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.training.checkpoint import Checkpointer
+    from monodepth_tpu_torch.training.state import (
+        build_model,
+        create_state,
+        model_modules,
+        set_precision,
+    )
+    from monodepth_tpu_torch.training.step import (
+        make_eval_step,
+        make_infer_step,
+        make_train_multi_step,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE13, ignore_errors=True)
+    cfg = Config().validate()
+    batches = wiring_batches(cfg, 6, seed=3)
+    images = [b["frames"][:, 0].astype(np.float32) / 255.0 for b in batches[:3]]
+    counters = (ws.warp_sample, ws.warp_sample_grads, ws.grid_vjp)
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return tuple(fn.launches for fn in counters)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 13a: infer, a capture at batch 12 and one at 5, against eager
+        model = build_model(cfg)
+        graphed_infer = make_infer_step(model, cfg)
+        eager_infer = make_infer_step(model, cfg, graph=False)
+        infer_diff = {}
+        for B in (12, 5):
+            xs = [x[:B] for x in images]
+            got, want = [graphed_infer(x) for x in xs], [eager_infer(x) for x in xs]
+            infer_diff[B] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            check(all(tuple(g.shape) == (B, cfg.height, cfg.width) for g in got),
+                  f"infer shapes {[tuple(g.shape) for g in got]}")
+        log(json.dumps({"phase": "13a, infer captured vs graph=False, 640x192 bf16",
+                        "max_abs_diff_by_batch": infer_diff, "card": card}))
+        check(all(v == 0 for v in infer_diff.values()),
+              f"captured infer differs from eager: {infer_diff}")
+
+        # 13b: eval, 3 captured calls (warm-up, capture, replay) against 3 eager
+        state = create_state(cfg, model)
+        graphed_eval = make_eval_step(model, cfg)
+        eager_eval = make_eval_step(model, cfg, graph=False)
+        zero()
+        got = [graphed_eval(state, b, i) for i, b in enumerate(batches[:3])]
+        eval_launches = counts()
+        graphed_eval(state, batches[0], 0)
+        replay_k2 = counts()[0] - eval_launches[0]
+        want = [eager_eval(state, b, i) for i, b in enumerate(batches[:3])]
+        eval_diff = max(metrics_diff(g, w) for g, w in zip(got, want))
+        log(json.dumps({"phase": "13b, eval step captured vs graph=False",
+                        "max_abs_diff": eval_diff, "losses": [float(m["loss"]) for m in got],
+                        "launches_k2_k1_k1bwd_3_calls": eval_launches,
+                        "k2_launches_one_replay": replay_k2, "card": card}))
+        check(eval_diff == 0, f"captured eval differs from eager: {eval_diff}")
+        check(eval_launches == (24, 0, 0) and replay_k2 == 8,
+              f"eval launches {eval_launches}, {replay_k2} a replay; expected 24 and 8")
+        eval_profile = profile_steps(torch, lambda i: graphed_eval(state, batches[i % 3], i),
+                                     {"k2": "warp_sample_fwd_kernel"}, n=1)
+        traced_k2 = eval_profile.get("k2_launches_per_step")
+        log(json.dumps({"phase": "13b, torch.profiler over one eval replay",
+                        "profile_of_one_replay": eval_profile, "card": card}))
+        check(traced_k2 == 8, f"profile of one eval replay: {traced_k2} K2 kernels; "
+              "expected 8")
+        del model, state, graphed_infer, eager_infer, graphed_eval, eager_eval
+
+        # 13c: train, 3 captured calls against 3 eager steps from a deep copy
+        state = create_state(cfg, build_model(cfg), steps_per_epoch=100)
+        twin = copy.deepcopy(state)
+        graphed_train = make_train_step(state.model, cfg)
+        eager_train = make_train_step(twin.model, cfg, graph=False)
+        zero()
+        got = [graphed_train(state, b) for b in batches[:3]]
+        train_launches = counts()
+        want = [eager_train(twin, b) for b in batches[:3]]
+        diff = state_diff(state, twin)
+        train_diff = max(metrics_diff(g, w) for g, w in zip(got, want))
+        adam_steps = sorted({float(e["step"]) for e in state.optimizer.state.values()})
+        profile = profile_steps(
+            torch, lambda i: graphed_train(state, batches[i % 3]),
+            {"k1": "warp_sample_fwd_grads_kernel", "k1_bwd": "warp_sample_bwd_grid_kernel"},
+            n=1)
+        log(json.dumps({"phase": "13c, train step captured vs graph=False, 3 steps",
+                        "state_max_abs_diff": diff, "metrics_max_abs_diff": train_diff,
+                        "launches_k2_k1_k1bwd": train_launches,
+                        "adam_device_steps": adam_steps, "state_step": 3,
+                        "profile_of_one_replay": profile, "card": card}))
+        check(diff == 0 and train_diff == 0,
+              f"captured train differs from eager: state {diff}, metrics {train_diff}")
+        check(train_launches == (0, 24, 24), f"train launches {train_launches}")
+        check(adam_steps == [3.0], f"Adam's device steps {adam_steps}, state.step 3")
+        traced = (profile.get("k1_launches_per_step"), profile.get("k1_bwd_launches_per_step"))
+        check(traced == (8, 8), f"profile of one replay: K1, K1-bwd kernels {traced}; "
+              "expected 8 and 8")
+
+        # --steps_per_call 2: 3 calls (warm-up, then 2 replays) against 6 eager steps
+        k2_state, k2_twin = copy.deepcopy(state), copy.deepcopy(state)
+        multi = make_train_multi_step(k2_state.model, cfg)
+        single = make_train_step(k2_twin.model, cfg, graph=False)
+        zero()
+        got = [multi(k2_state, batches[i:i + 2]) for i in (0, 2)]
+        before = counts()
+        got.append(multi(k2_state, batches[4:6]))
+        multi_replay = tuple(a - b for a, b in zip(counts(), before))
+        want = [single(k2_twin, b) for b in batches]
+        want = [{k: torch.stack([m[k] for m in want[i:i + 2]]) for k in want[0]}
+                for i in (0, 2, 4)]
+        multi_diff = (state_diff(k2_state, k2_twin),
+                      max(metrics_diff(g, w) for g, w in zip(got, want)))
+        log(json.dumps({"phase": "13c, --steps_per_call 2 captured vs 6 eager steps",
+                        "state_and_metrics_max_abs_diff": multi_diff,
+                        "launches_one_replay": multi_replay, "card": card}))
+        check(multi_diff == (0, 0), f"K=2 captured differs from eager: {multi_diff}")
+        check(multi_replay == (0, 16, 16), f"one K=2 replay launched {multi_replay}")
+        del k2_twin, single
+
+        # --remat: a captured step (after its warm-up) against an eager one
+        rcfg = dataclasses.replace(cfg, remat=True)
+        r_state = create_state(rcfg, build_model(rcfg), steps_per_epoch=100)
+        r_twin = copy.deepcopy(r_state)
+        r_graphed, r_eager = make_train_step(r_state.model, rcfg), \
+            make_train_step(r_twin.model, rcfg, graph=False)
+        got = [r_graphed(r_state, b) for b in batches[:2]]
+        before = counts()
+        got.append(r_graphed(r_state, batches[2]))
+        remat_replay = tuple(a - b for a, b in zip(counts(), before))
+        want = [r_eager(r_twin, b) for b in batches[:3]]
+        remat_diff = (state_diff(r_state, r_twin),
+                      max(metrics_diff(g, w) for g, w in zip(got, want)))
+        log(json.dumps({"phase": "13c, --remat captured vs graph=False, 3 steps",
+                        "state_and_metrics_max_abs_diff": remat_diff,
+                        "launches_one_replay": remat_replay, "card": card}))
+        check(remat_diff == (0, 0), f"--remat captured differs from eager: {remat_diff}")
+        check(remat_replay == (0, 16, 8), f"one --remat replay launched {remat_replay}")
+        del r_state, r_twin, r_graphed, r_eager
+
+        # 13f: a captured step refuses another state; a restore under a
+        # capture captures again and equals the uninterrupted run
+        try:
+            graphed_train(twin, batches[0])
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise SmokeFailure("a captured train step took another TrainState")
+        checkpointer = Checkpointer(PHASE13)
+        checkpointer.save(0, state)
+        for b in batches[3:5]:
+            graphed_train(state, b)
+        resumed = make_train_step(twin.model, cfg)
+        checkpointer.restore(twin)
+        for b in batches[:2]:  # its warm-up and its capture
+            resumed(twin, b)
+        checkpointer.restore(twin)  # Adam's moments replaced under the capture
+        for b in batches[3:5]:
+            resumed(twin, b)
+        restore_diff = state_diff(state, twin)
+        log(json.dumps({"phase": "13f, guards", "another_state": refused,
+                        "restore_under_capture_vs_uninterrupted_max_abs_diff": restore_diff,
+                        "card": card}))
+        check(restore_diff == 0, f"capture after a restore differs: {restore_diff}")
+        del resumed, twin
+
+        # 13d: Adam's formula, capturable (the card's, every path) against
+        # the host-rate Adam of before, on the same gradients: 3 eager
+        # steps of the capturable state, each step's gradients and batch-
+        # norm statistics handed to a twin that steps the host-rate Adam.
+        # Fed its own gradients, a twin would drift by more than rounding:
+        # Adam's early steps amplify a last-bit difference (phase 11a)
+        a_state = create_state(cfg, build_model(cfg), steps_per_epoch=100)
+        b_state = copy.deepcopy(a_state)
+        b_state.optimizer = host_rate_adam(b_state)
+        step = make_train_step(a_state.model, cfg, graph=False)
+        for b in batches[:3]:
+            step(a_state, b)
+            for pa, pb in zip(a_state.model.parameters(), b_state.model.parameters()):
+                pb.grad = pa.grad.clone()
+            for xa, xb in zip(a_state.model.buffers(), b_state.model.buffers()):
+                xb.copy_(xa)
+            b_state.apply_gradients()
+        check(b_state.step == a_state.step == 3, "Adam formula: step counts")
+        # the eval loss in f32 with TF32 off: a bf16 or TF32 cast of weights
+        # that differ in their last bits flips some roundings
+        f32 = dataclasses.replace(cfg, precision="f32")
+        set_precision(f32)
+        try:
+            losses = [float(make_eval_step(s.model, f32, graph=False)(s, batches[3], 0)["loss"])
+                      for s in (a_state, b_state)]
+        finally:
+            set_precision(cfg)
+        loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        param_rel = {}
+        for m in model_modules(a_state.model):
+            pa, pb = (torch.cat([p.detach().double().flatten()
+                                 for n, p in s.model.named_parameters()
+                                 if n.startswith(m + ".")]) for s in (a_state, b_state))
+            param_rel[m] = float((pa - pb).norm() / pb.norm())
+        log(json.dumps({"phase": "13d, capturable Adam vs host-rate Adam, 3 bf16 steps on "
+                                 "the same gradients, then an f32 eval loss of each",
+                        "eval_losses": losses, "loss_rel": loss_rel,
+                        "param_rel_l2_by_module": param_rel, "card": card}))
+        check(loss_rel <= 1e-5, f"Adam formula: loss rel {loss_rel} > 1e-5")
+        check(all(v <= 1e-6 for v in param_rel.values()),
+              f"Adam formula: parameter rel-L2 {param_rel} > 1e-6")
+        del a_state, b_state, step
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # 13e: speed, cuDNN as in phase 5a; each captured step warmed (warm-up
+    # and capture) before it is timed
+    eval_state = create_state(cfg, state.model)
+    eval_graphed, eval_eager = make_eval_step(state.model, cfg), \
+        make_eval_step(state.model, cfg, graph=False)
+    infer_graphed, infer_eager = make_infer_step(state.model, cfg), \
+        make_infer_step(state.model, cfg, graph=False)
+    eager_state = copy.deepcopy(state)
+    multi_eager = make_train_multi_step(eager_state.model, cfg, graph=False)
+    train_eager = make_train_step(eager_state.model, cfg, graph=False)
+    runs = {
+        "train_k1": (lambda i: graphed_train(state, batches[i % 6]), 1),
+        "train_k1_eager": (lambda i: train_eager(eager_state, batches[i % 6]), 1),
+        "train_k2": (lambda i: multi(k2_state, batches[2 * (i % 3):2 * (i % 3) + 2]), 2),
+        "train_k2_eager": (lambda i: multi_eager(eager_state,
+                                                 batches[2 * (i % 3):2 * (i % 3) + 2]), 2),
+        "eval": (lambda i: eval_graphed(eval_state, batches[i % 6], i), 1),
+        "eval_eager": (lambda i: eval_eager(eval_state, batches[i % 6], i), 1),
+        "infer": (lambda i: infer_graphed(images[i % 3]), 1),
+        "infer_eager": (lambda i: infer_eager(images[i % 3]), 1),
+    }
+    speed = {}
+    for name, (fn, k) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(0)
+        fn(1)
+        ms = host_ms(torch, fn)
+        prof = profile_steps(torch, fn, {}, n=3)
+        busy = prof["device_busy_ms_per_step"]
+        speed[name] = {"host_ms_per_call": ms, "host_ms_per_step": ms / k,
+                       "device_busy_ms_per_call": busy,
+                       "idle_share": None if busy is None else 1 - busy / ms,
+                       "kernels_per_call": prof.get("kernels_per_step"),
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base}
+    log(json.dumps({"phase": "13e, host ms (median of 10) and device-busy ms "
+                             "(torch.profiler over 3 replays or eager calls) a call, "
+                             "640x192 b12 bf16",
+                    "steps": speed, "phase5a_train_step_ms": step5a_ms,
+                    "phase5a_device_busy_ms": busy5a_ms,
+                    "peak": "torch.cuda.max_memory_allocated over each path's warm-up, "
+                            "capture and timed calls, and above the memory at its start",
+                    "card": card}))
+    del runs, eval_graphed, eval_eager, infer_graphed, infer_eager, multi_eager, train_eager
+
+    # the Trainer on phase 9d's epochs (24 train steps), captured and eager
+    rate_cfg = Config(datapath=root, splits=splits, save_root=PHASE13, weight_init=False,
+                      num_workers=8, log_every=0, epoch=2)
+    rates = {}
+    for name, extra in (("decode", {}), ("cached_frames", {"cache_frames": True})):
+        for graph in (False, True):
+            label = f"{name}_{'captured' if graph else 'eager'}"
+            rates[label] = trainer_rate(
+                torch, dataclasses.replace(rate_cfg, save=label, **extra),
+                train_lines * 6, graph)
+    log(json.dumps({"phase": "13e, the Trainer's train img/s, second of 2 epochs of 24 "
+                             "steps, 8 loader threads", "img_per_s": rates, "card": card}))
+    shutil.rmtree(PHASE13, ignore_errors=True)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s; {card}")
+    return {"warp_sample_fwd": traced_k2, "warp_sample_fwd_grads": traced[0],
+            "warp_sample_bwd_grid": traced[1]}
+
+
 def _device_total(event) -> float:
     """Device µs of the kernels launched under a CPU-side event."""
     for name in ("device_time_total", "cuda_time_total"):
@@ -2553,6 +2967,43 @@ def profile_steps(torch, step, kernels: dict, ranges=(), n: int = 3) -> dict:
     return out
 
 
+def step_clock(torch) -> dict:
+    """`--step-clock`: the host ms (median of 10) and device-busy ms
+    (`torch.profiler` over 3 calls) of the default train and eval steps of
+    the checkout beside this file, at the headline config (640x192, b12,
+    bf16, ResNet-18, `separate`), on `make_planar_scenes` batches, as one
+    JSON line. Copied into the root of an older checkout, it times that
+    checkout's steps (eager where the step makers take no `graph=`) with
+    the same measure."""
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.data.synthetic import make_planar_scenes
+    from monodepth_tpu_torch.training.state import build_model, create_state
+    from monodepth_tpu_torch.training.step import make_eval_step, make_train_step
+
+    cfg = Config().validate()
+    B = cfg.batch
+    scenes = make_planar_scenes(3 * B, cfg.height, cfg.width, seed=0)
+    batches = [{k: scenes[k][i * B:(i + 1) * B] for k in ("frames", "jitter", "K", "inv_K")}
+               for i in range(3)]
+    model = build_model(cfg)
+    state = create_state(cfg, model, steps_per_epoch=100)
+    train_step, eval_step = make_train_step(model, cfg), make_eval_step(model, cfg)
+    out = {"package": os.path.join(HERE, "monodepth_tpu_torch"),
+           "config": "ResNet-18 separate 640x192 b12 bf16", "card": card_line()}
+    for name, fn in (("train", lambda i: train_step(state, batches[i % 3])),
+                     ("eval", lambda i: eval_step(state, batches[i % 3], i))):
+        for i in range(3):  # warm (and, captured, the warm-up and the capture)
+            fn(i)
+        ms = host_ms(torch, fn)
+        prof = profile_steps(torch, fn, {}, n=3)
+        busy = prof["device_busy_ms_per_step"]
+        out[name] = {"host_ms": ms, "device_busy_ms": busy,
+                     "idle_share": None if busy is None else 1 - busy / ms,
+                     "kernels_per_call": prof.get("kernels_per_step")}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2560,6 +3011,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    if sys.argv[1:] == ["--step-clock"]:
+        step_clock(torch)
+        return 0
     from monodepth_tpu_torch.ops.cuda import warp_sample as ws
     from monodepth_tpu_torch.ops.cuda.build import build_libraries
     from monodepth_tpu_torch.config import Config
@@ -2590,6 +3044,8 @@ def main() -> int:
     wirings_launches = phase_wirings(torch, ws, card, step_ms, busy_ms)
     mesh_trainer_launches = phase_mesh_trainer(torch, ws, root, splits, card, one_process)
     phase_tools(torch, root, splits, os.path.join(PHASE11, "mesh"), 2, card)
+    graphs_launches = phase_graphs(torch, ws, root, splits, train_lines, card,
+                                   step_ms, busy_ms)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in SHIFTED:
@@ -2601,6 +3057,8 @@ def main() -> int:
         if entry["name"] in mesh_steps_launches:  # the warp kernels run_steps counts
             entry["launches_mesh_steps_path"] = mesh_steps_launches[entry["name"]]
         entry["launches_mesh_trainer_path"] = mesh_trainer_launches[entry["name"]]
+        if entry["name"] in graphs_launches:
+            entry["launches_graphs_path"] = graphs_launches[entry["name"]]
 
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -18,11 +18,15 @@ package. Some flags were written for the TPU build; here they mean:
   batch-norm running statistics again), and the train step recomputes
   each warp, so the train-form warp kernel runs twice per warp.
 - ``--donate``: accepted and ignored. The train step updates the
-  parameters and the optimizer state in place.
+  parameters and the optimizer state in place, eagerly and in a CUDA
+  graph alike (a graph keeps them at fixed addresses).
 - ``--steps_per_call``: the Trainer runs that many train steps per call
   on consecutive batches (``training.step.make_train_multi_step``), equal
-  to as many single steps. Run eagerly that saves nothing; the steps
-  gain from it once a call is captured in a CUDA graph (ROADMAP 6e).
+  to as many single steps. On one card the K steps are one CUDA graph,
+  one replay a call, as JAX's ``lax.scan`` is one dispatch; a single step
+  is a graph too, so K > 1 saves only the per-call host work (input
+  copies, the noise draws, one replay). On the CPU and on a mesh the K
+  steps run eagerly.
 - ``--warp_guard`` and ``--warp_auto_swap``: accepted and ignored. In
   JAX they bound the Pallas warp's cost, which grows with the warp
   field's vertical span (a slab loop over the rows the taps reach). The

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from monodepth_tpu_torch.ops.sampling import device_constant
+
 Tensor = torch.Tensor
 
 
@@ -51,7 +53,7 @@ def hsv_to_rgb(hsv: Tensor) -> Tensor:
 
 def _grayscale(img: Tensor) -> Tensor:
     """ITU-R 601 luma, the torchvision rgb_to_grayscale convention."""
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
+    w = device_constant((0.299, 0.587, 0.114), img.dtype, img.device)
     return (img * w).sum(-1, keepdim=True)
 
 

@@ -43,6 +43,14 @@ def min_reprojection(reproj: Tensor, identity: Tensor | None,
     return combined.amin(-1)
 
 
+def tie_noise(generator: torch.Generator, shape, dtype: torch.dtype,
+              device) -> Tensor:
+    """One scale's tie-break noise, 1e-5·N(0, 1), as `monodepth_loss`
+    draws it from a generator."""
+    return 1e-5 * torch.randn(shape, generator=generator, dtype=dtype,
+                              device=device)
+
+
 def monodepth_loss(
     disp_pyramid: Mapping[int, Tensor],
     warped_colors: Mapping[int, Sequence[Tensor]],
@@ -77,9 +85,8 @@ def monodepth_loss(
         tie = None
         if identity is not None:
             if isinstance(noise, torch.Generator):
-                tie = 1e-5 * torch.randn(identity.shape, generator=noise,
-                                         dtype=identity.dtype,
-                                         device=identity.device)
+                tie = tie_noise(noise, identity.shape, identity.dtype,
+                                identity.device)
             else:
                 tie = noise[scale].to(identity.device, identity.dtype)
         photometric = min_reprojection(reproj, identity, tie).mean()

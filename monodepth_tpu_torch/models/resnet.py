@@ -241,7 +241,10 @@ class ResNetEncoder(nn.Module):
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             if self.remat and torch.is_grad_enabled():
                 for block in stage:
+                    # no random numbers are drawn, so no RNG state is kept
+                    # (it cannot be read while a CUDA graph is captured)
                     x = checkpoint(block, x, use_reentrant=False,
+                                   preserve_rng_state=False,
                                    context_fn=lambda b=block: (
                                        contextlib.nullcontext(), Recomputation(b)))
             else:

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from monodepth_tpu_torch.ops.sampling import device_constant
+
 Tensor = torch.Tensor
 
 
@@ -98,5 +100,5 @@ def warp_grid(depth: Tensor, inv_K: Tensor, K: Tensor, T: Tensor) -> Tensor:
     pts = rays * depth.reshape(B, 1, H * W) + P[:, :, 3:4]
     xy = pts[:, :2, :] / (pts[:, 2:3, :] + 1e-7)
     xy = xy.reshape(B, 2, H, W).permute(0, 2, 3, 1)
-    scale = torch.tensor([W - 1, H - 1], dtype=xy.dtype, device=xy.device)
+    scale = device_constant((W - 1, H - 1), xy.dtype, xy.device)
     return ((xy / scale - 0.5) * 2.0).contiguous()

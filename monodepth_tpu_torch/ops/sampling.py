@@ -101,6 +101,28 @@ def _linear_resize_matrix(in_size: int, out_size: int,
     return mat
 
 
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> Tensor:
+    """`torch.tensor(values, dtype=dtype, device=device)`, made once per
+    (values, dtype, device) and kept: a host tensor copied to the card on
+    every call would wait for the card's queue, and cannot be captured in
+    a CUDA graph. Made outside inference mode, so autograd may save it.
+    Read-only."""
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(in_size: int, out_size: int, align_corners: bool,
+                   dtype: torch.dtype, device: torch.device) -> Tensor:
+    """`_linear_resize_matrix` on `device` in `dtype`, kept as
+    `device_constant` keeps its tensors."""
+    with torch.inference_mode(False), torch.no_grad():
+        return torch.from_numpy(_linear_resize_matrix(
+            in_size, out_size, align_corners)).to(device, dtype)
+
+
 def resize_bilinear(image: Tensor, height: int, width: int,
                     align_corners: bool = False) -> Tensor:
     """Separable bilinear resize of [B, H, W, C] as two products with
@@ -109,13 +131,10 @@ def resize_bilinear(image: Tensor, height: int, width: int,
     B, H, W, C = image.shape
     if (H, W) == (height, width):
         return image
-
-    def mat(n_in, n_out):
-        return torch.from_numpy(_linear_resize_matrix(
-            n_in, n_out, align_corners)).to(image.device, image.dtype)
-
-    out = torch.einsum("oh,bhwc->bowc", mat(H, height), image)
-    return torch.einsum("ow,bhwc->bhoc", mat(W, width), out)
+    rows = _resize_matrix(H, height, align_corners, image.dtype, image.device)
+    cols = _resize_matrix(W, width, align_corners, image.dtype, image.device)
+    out = torch.einsum("oh,bhwc->bowc", rows, image)
+    return torch.einsum("ow,bhwc->bhoc", cols, out)
 
 
 def upsample_nearest_2x(image: Tensor) -> Tensor:

@@ -188,7 +188,7 @@ def shard_batch(mesh: Mesh, batch: Mapping[str, Any]) -> Dict[str, Tensor]:
 def _broadcast(t: Tensor, device: torch.device) -> None:
     """Broadcast `t` from rank 0 in place; a host tensor goes through
     `device` when the backend is NCCL (Adam's step counts stay on the
-    host)."""
+    host on the CPU, and lie on the card when Adam is capturable)."""
     if t.device.type == "cpu" and dist.get_backend() == "nccl":
         staged = t.to(device)
         dist.broadcast(staged, src=0)

@@ -182,7 +182,9 @@ def _reference(cfg: Config, args, batches, mesh_report: dict,
     model) on the global batches -> (the one device's gradients after the
     first step by module, the differences from the mesh's run)."""
     state = create_state(cfg, model, steps_per_epoch=STEPS_PER_EPOCH)
-    step = make_train_step(model, cfg, device=device)
+    # eager, as the mesh steps run (a capture would add its memory pool in
+    # a process that shares the card with the other ranks)
+    step = make_train_step(model, cfg, device=device, graph=False)
     losses, grads = [], None
     for i in range(args.steps):
         losses.append(float(step(state, batches[i])["loss"]))
@@ -195,7 +197,8 @@ def _reference(cfg: Config, args, batches, mesh_report: dict,
                 if "running" in k)
     # the eval step from the mesh's trained state: only the step differs
     model.load_state_dict(mesh_sd)
-    ev = _floats(make_eval_step(model, cfg, device=device)(state, batches[-1], 0))
+    ev = _floats(make_eval_step(model, cfg, device=device, graph=False)(
+        state, batches[-1], 0))
     mesh_ev = mesh_report["eval"]
     return grads, {
         "losses": losses,

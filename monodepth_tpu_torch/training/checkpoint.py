@@ -26,7 +26,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
-from monodepth_tpu_torch.training.state import TrainState
+from monodepth_tpu_torch.training.state import TrainState, load_optimizer_state
 from monodepth_tpu_torch.utils.jax_export import jax_variables
 from monodepth_tpu_torch.utils.serialization import save_npz
 
@@ -171,9 +171,12 @@ class Checkpointer:
         it) into `state` in place: the model's parameters and buffers, the
         optimizer, step and seed. Returns (state, epoch restored). The file
         is read to the CPU (`weights_only`): `load_state_dict` copies the
-        model's tensors onto its device, and the optimizer moves its
-        moments onto the parameters' device and keeps Adam's step counts on
-        the host, where a new Adam keeps them. In a process group the ranks
+        model's tensors onto its device, and `load_optimizer_state` moves
+        Adam's moments onto the parameters' device, its step counts where
+        the live Adam keeps them, and keeps the live Adam's settings. The
+        parameters, buffers and moments are copied or replaced, so a step
+        captured in a CUDA graph before the restore captures again on its
+        next call (`training.graphs`). In a process group the ranks
         agree on the read (one all-gather) before any of them goes on: if
         one rank cannot read the file, every rank raises, naming it."""
         if epoch is None:
@@ -195,7 +198,7 @@ class Checkpointer:
         elif failure is not None:
             raise failure
         state.model.load_state_dict(data["model"])
-        state.optimizer.load_state_dict(data["optimizer"])
+        load_optimizer_state(state.optimizer, data["optimizer"])
         state.step, state.seed = data["step"], data["seed"]
         return state, data["epoch"]
 

@@ -1,0 +1,182 @@
+"""The steps as CUDA graphs: the port's counterpart of JAX's `jax.jit`
+regions.
+
+Each JAX entry point is one jitted program, so each call is one dispatch:
+the train step (`monodepth_tpu/training/step.py:334`), K train steps as
+one `lax.scan` (`:352`, `--steps_per_call`), the eval step (`:376`) and
+the infer step (`:393`). Run eagerly, the port's train step issues some
+5,100 kernel launches from Python a call, and the card waits between
+them. `GraphedStep` captures a step's body once per input signature and
+then replays it: one graph launch a call. The step makers of
+`training/step.py` use it on a card without a mesh (`graph=None`).
+
+What a captured step needs, and where it is done:
+- static inputs: the inputs are a tree of dicts, lists and tensors (or
+  Python floats, which become 0-d f32 tensors); a capture is keyed on the
+  tree's keys, shapes and dtypes, as `jax.jit` traces once per shape, and
+  on cuDNN's and cuBLAS's switches, which pick the kernels a capture
+  keeps. Every call copies its inputs into its key's buffers on the
+  current stream.
+- warm-up: a key's first call runs the body eagerly on a side stream.
+  It is a real call: its updates stay and its outputs are returned. The
+  second call captures, then replays.
+- outputs: every call returns clones, so the next replay cannot change
+  what a caller kept (the Trainer's `_Meter` keeps the first value it sees
+  by reference).
+- Python side effects of the body happen once, while it is captured. What
+  must change per call comes in as an input (the step makers pass the
+  tie-break noise, drawn by the host's generators, and the learning
+  rates). After a capture the launch counters of the kernel wrappers and
+  `state.step` are put back, and every replay advances them by what the
+  capture recorded, so the counters go on counting kernel executions.
+- bound tensors: a graph holds the addresses of the tensors the body
+  reads and updates in place (parameters, buffers, gradients, optimizer
+  state). They are read at every call; if one moved since the key was
+  captured (a restore replaces Adam's moments; another key's capture
+  made new gradients), the key is captured again, so no replay works on
+  memory that is no longer the state's.
+- capture_error_mode "thread_local": a CUDA call from another thread
+  (the loader's, the async checkpoint writer's) cannot break a capture.
+- a capture that fails raises; nothing falls back to the eager step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import torch
+
+from monodepth_tpu_torch.ops.cuda import warp_sample as ws
+
+Tensor = torch.Tensor
+
+# the kernel wrappers of the steps, whose `.launches` a replay advances
+COUNTED = (ws.warp_sample, ws.warp_sample_grads, ws.warp_sample_shifted,
+           ws.warp_sample_grads_shifted, ws.grid_vjp)
+
+
+def _signature(tree) -> Any:
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (len(tree),) + tuple(_signature(v) for v in tree)
+    if isinstance(tree, float):
+        return float
+    return tuple(tree.shape), tree.dtype
+
+
+def _backend_switches() -> Tuple[bool, ...]:
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled())
+
+
+def _map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _empty(tree, device: torch.device):
+    def empty(leaf):
+        if isinstance(leaf, float):
+            return torch.empty((), dtype=torch.float32, device=device)
+        return torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+
+    return _map(empty, tree)
+
+
+def _copy_into(static, tree) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _copy_into(static[k], v)
+    elif isinstance(tree, (list, tuple)):
+        for s, v in zip(static, tree):
+            _copy_into(s, v)
+    elif isinstance(tree, float):
+        static.fill_(tree)
+    else:
+        static.copy_(tree)
+
+
+def _addresses(tensors: Sequence[Tensor | None]) -> List[int]:
+    return [0 if t is None else t.data_ptr() for t in tensors]
+
+
+@dataclasses.dataclass
+class _Capture:
+    graph: Any             # torch.cuda.CUDAGraph
+    static: Any            # the input buffers
+    out: Any               # the output buffers
+    launches: List[Tuple[Callable, int]]  # (wrapper, launches a replay)
+    binding: List[int]     # the bound tensors' addresses
+
+
+class GraphedStep:
+    """`body(inputs)` -> a tree of tensors, run as a CUDA graph on `device`
+    (module docstring). `bound()` lists the tensors whose addresses a
+    capture holds (None entries allowed: a missing gradient)."""
+
+    def __init__(self, body: Callable[[Any], Any], device: torch.device,
+                 bound: Callable[[], Sequence[Tensor | None]]):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+        self.body = body
+        self.device = device
+        self.bound = bound
+        self.stream = torch.cuda.Stream(device)
+        self.warm: set = set()
+        self.captures: Dict[Any, _Capture] = {}
+
+    def __call__(self, inputs, state=None, steps: int = 0):
+        """Run the body on `inputs` (host or device tensors, floats);
+        `steps`: how far one call advances `state.step`."""
+        key = (_signature(inputs), _backend_switches())
+        if key not in self.warm:
+            out = self._warm_up(inputs)
+            self.warm.add(key)
+            return out
+        capture = self.captures.get(key)
+        if capture is not None and _addresses(self.bound()) != capture.binding:
+            del self.captures[key], capture  # free its pool before capturing
+            capture = None
+        if capture is None:
+            capture = self.captures[key] = self._capture(inputs, state)
+        _copy_into(capture.static, inputs)
+        capture.graph.replay()
+        for wrapper, n in capture.launches:
+            wrapper.launches += n
+        if state is not None:
+            state.step += steps
+        return _map(torch.clone, capture.out)
+
+    def _warm_up(self, inputs):
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            args = _empty(inputs, self.device)
+            _copy_into(args, inputs)
+            out = self.body(args)
+        current.wait_stream(self.stream)
+        return out
+
+    def _capture(self, inputs, state) -> _Capture:
+        static = _empty(inputs, self.device)
+        counts = [w.launches for w in COUNTED]
+        step = None if state is None else state.step
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                out = self.body(static)
+        finally:
+            launches = [(w, w.launches - n) for w, n in zip(COUNTED, counts)
+                        if w.launches != n]
+            for w, n in zip(COUNTED, counts):
+                w.launches = n
+            if state is not None:
+                state.step = step
+        return _Capture(graph, static, out, launches, _addresses(self.bound()))

@@ -12,6 +12,11 @@ as `python -m monodepth_tpu_torch.model_train` does under torchrun):
   gradients and normalize batch norm over the global batch;
 - the batches of `Loader` go through `prefetch_to_device`, so the copies
   to the card overlap the step that runs;
+- on one card the train, validation and Eigen-infer calls are CUDA graphs
+  (`training.step`, `graph=None`): each copies its batch into the graph's
+  static inputs on the consuming stream and replays; the first call of
+  each shape runs eagerly and the second captures, after any pretrained
+  load and restore. On a mesh every step runs eagerly;
 - the metrics accumulate on the device and are fetched once per flush
   (`_Meter`), not once per step;
 - each epoch prints the reference's 8-metric table, appends a record to
@@ -115,7 +120,8 @@ class _Meter:
     """Running sums (and maxes for `_MAX_KEYS`) kept on the device; one
     host fetch per flush. A metric is a 0-d tensor, or a [K] tensor from
     `make_train_multi_step`, whose values are added one by one in step
-    order, so the sums equal those of K single steps."""
+    order, so the sums equal those of K single steps. The first value of
+    a key is copied, so a caller may reuse its tensor afterwards."""
 
     def __init__(self):
         self.sums: Dict[str, torch.Tensor] = {}
@@ -128,9 +134,10 @@ class _Meter:
             values = value.unbind(0) if value.ndim else (value,)
             k = len(values)
             for v in values:
-                self.sums[key] = v if key not in self.sums else self.sums[key] + v
+                self.sums[key] = v.clone() if key not in self.sums \
+                    else self.sums[key] + v
                 if key in _MAX_KEYS:
-                    self.maxes[key] = v if key not in self.maxes \
+                    self.maxes[key] = v.clone() if key not in self.maxes \
                         else torch.maximum(self.maxes[key], v)
         self.count += k
 
@@ -255,8 +262,9 @@ class Trainer:
                     cfg.datapath, lines,
                     cache_dir=os.path.join(cfg.save_root, "gt_cache_eval"))
                 self._eigen = (lines, gts)
-            if self._eigen_infer is None:
-                self._eigen_infer = make_infer_step(self.model, cfg, self.device)
+            if self._eigen_infer is None:  # a CUDA graph on one card
+                self._eigen_infer = make_infer_step(self.model, cfg, self.device,
+                                                    graph=False if multi else None)
         except Exception as exc:  # noqa: BLE001 - a rank must reach the all-gather
             if not multi:
                 raise

@@ -102,12 +102,47 @@ def make_optimizer(cfg: Config, model: Monodepth, steps_per_epoch: int
                    ) -> Tuple[torch.optim.Adam, Schedule]:
     """Adam(b1=0.9, b2=0.999, eps=1e-8) over the model's parameters and
     its StepLR schedule. `TrainState.apply_gradients` sets the learning
-    rate of step k to schedule(k) before the update, as optax counts."""
+    rate of step k to schedule(k) before the update, as optax counts.
+
+    On a CUDA device Adam is `capturable` (foreach), its learning rate a
+    0-d f32 tensor on the card and its step counts on the card, so one
+    update formula runs eagerly, in a CUDA graph and on a mesh. On the
+    CPU it is today's Adam with a float rate and host step counts (the
+    optax parity tests hold that one; capturable Adam refuses CPU
+    parameters)."""
     schedule = step_decay_schedule(cfg.learning_rate, cfg.scheduler_step,
                                    steps_per_epoch)
-    optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0),
-                                 betas=(0.9, 0.999), eps=1e-8)
+    params = list(model.parameters())
+    device = params[0].device
+    if device.type == "cuda":
+        lr = torch.full((), schedule(0), dtype=torch.float32, device=device)
+        optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                     foreach=True, capturable=True)
+    else:
+        optimizer = torch.optim.Adam(params, lr=schedule(0),
+                                     betas=(0.9, 0.999), eps=1e-8)
     return optimizer, schedule
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """`optimizer.load_state_dict(saved)`, keeping the live optimizer's
+    settings. `load_state_dict` copies the saved param groups' settings
+    over the live ones; here every setting but the parameters is put back
+    (the rate tensor of a capturable Adam, `capturable`, `foreach`), and
+    each step count goes where the live Adam keeps it: on the parameter's
+    device as f32 when capturable, else on the host. So a checkpoint of
+    either kind (written on the CPU, on a card, or before Adam was
+    capturable) loads into either."""
+    live = [{k: v for k, v in group.items() if k != "params"}
+            for group in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, settings in zip(optimizer.param_groups, live):
+        group.update(settings)
+        for p in group["params"]:
+            entry = optimizer.state.get(p)
+            if entry and isinstance(entry.get("step"), torch.Tensor):
+                home = p.device if settings.get("capturable") else "cpu"
+                entry["step"] = entry["step"].to(home, torch.float32)
 
 
 @dataclasses.dataclass
@@ -121,15 +156,23 @@ class TrainState:
     optimizer: Optional[torch.optim.Optimizer] = None
     schedule: Optional[Schedule] = None
 
-    def apply_gradients(self) -> None:
+    def apply_gradients(self, lr: Optional[torch.Tensor] = None) -> None:
         """One optimizer update from the gradients in the parameters'
-        `.grad`, at the learning rate schedule(step); then step += 1."""
+        `.grad`, at the learning rate schedule(step); then step += 1. A
+        tensor rate (capturable Adam) is written with `fill_`, a host
+        float is assigned. `lr`, a 0-d tensor on the card, is copied into
+        the rate tensor instead of schedule(step): inside a CUDA graph
+        (`training.graphs`) the host value would be fixed at capture."""
         if self.optimizer is None:
             raise ValueError("this state has no optimizer: build it with "
                              "create_state(cfg, model, steps_per_epoch=...)")
-        lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            if lr is not None:
+                group["lr"].copy_(lr)
+            elif isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(self.schedule(self.step))
+            else:
+                group["lr"] = self.schedule(self.step)
         self.optimizer.step()
         self.step += 1
 

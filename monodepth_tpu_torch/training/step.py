@@ -28,6 +28,16 @@ its backward recomputes the forward, so `WarpSample` launches K1 twice.
 Each step sets the model's mode itself: `.train()` for the train step
 (batch statistics, running statistics updated), `.eval()` for the others.
 
+On a card without a mesh every step maker returns a step that runs as a
+CUDA graph (`graph=None`; `training.graphs.GraphedStep`), the counterpart
+of JAX's `jax.jit`: each call replays one captured graph. The first call
+of each input shape runs eagerly, the second captures. `graph=False`
+keeps the eager step there; the CPU and a mesh always run eagerly (gloo
+collectives and the spatial mesh's host branch cannot be captured), and
+`graph=True` raises on them. The graphed steps draw the tie-break noise
+ahead (`draw_tie_noise`), from the same generators, so their bits equal
+the eager steps'.
+
 Under a process mesh (`parallel.make_mesh`, `mesh=`), each rank holds its
 piece of the global batch (`parallel.shard_batch`) and the train and eval
 steps compute what the single-device step computes on the global batch:
@@ -58,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.augment import decode_frames
 from monodepth_tpu_torch.losses.metrics import training_depth_metric
-from monodepth_tpu_torch.losses.reprojection import monodepth_loss
+from monodepth_tpu_torch.losses.reprojection import monodepth_loss, tie_noise
 from monodepth_tpu_torch.models.monodepth import Monodepth
 from monodepth_tpu_torch.models.resnet import sync_batch_stats
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
@@ -82,6 +92,7 @@ from monodepth_tpu_torch.parallel.mesh import (
     gather_rows,
     split_rows,
 )
+from monodepth_tpu_torch.training.graphs import GraphedStep
 from monodepth_tpu_torch.training.state import TrainState, resolve_device
 
 Tensor = torch.Tensor
@@ -89,8 +100,10 @@ Sampler = Callable[[Tensor, Tensor], Tensor]
 
 
 def _autocast(cfg: Config, device: torch.device):
+    # no cast cache: a CUDA graph cannot capture it, and the casts it saves
+    # are the same values
     return torch.autocast(device.type, dtype=torch.bfloat16,
-                          enabled=cfg.precision == "bf16")
+                          enabled=cfg.precision == "bf16", cache_enabled=False)
 
 
 def _to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Tensor]:
@@ -148,7 +161,8 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
         else:
             sampler = WarpSample.apply if train else warp_sample
     if cfg.remat and torch.is_grad_enabled():
-        sampler = functools.partial(checkpoint, sampler, use_reentrant=False)
+        sampler = functools.partial(checkpoint, sampler, use_reentrant=False,
+                                    preserve_rng_state=False)
     telemetry = cfg.use_pallas or cfg.warp_telemetry
 
     warped: Dict[int, list] = {}
@@ -333,6 +347,52 @@ def tie_noise_generator(seed: int, step: int, index: int | None,
     return torch.Generator(device=device).manual_seed(int(key))
 
 
+def draw_tie_noise(cfg: Config, batch: Mapping[str, Tensor], seed: int,
+                   step: int, index: int | None,
+                   device: torch.device) -> Dict[int, Tensor]:
+    """The tie-break noise of one step drawn ahead, {scale: [B, H, W,
+    n_sources]} on `device`: `tie_noise_generator(seed, step, index)` drawn
+    scale by scale in the order, shape and dtype in which `monodepth_loss`
+    draws it, so a step handed this noise equals the step that draws it
+    ({} without automasking). The graphed steps feed it to their graphs."""
+    if not cfg.use_automasking:
+        return {}
+    B, _, H, W, _ = batch["frames"].shape
+    dtype = torch.promote_types(torch.float32, batch["jitter"].dtype)
+    generator = tie_noise_generator(seed, step, index, device)
+    shape = (B, H, W, len(cfg.source_frame_ids))
+    return {s: tie_noise(generator, shape, dtype, device) for s in cfg.scales}
+
+
+def _graphed(graph: bool | None, device: torch.device, mesh: Mesh | None) -> bool:
+    """Whether a step maker captures its step: by default on a CUDA device
+    without a mesh; `graph=True` elsewhere raises."""
+    if graph is None:
+        return device.type == "cuda" and mesh is None
+    if graph and (device.type != "cuda" or mesh is not None):
+        raise ValueError(f"graph=True needs a CUDA device and no mesh; got "
+                         f"{device}{' with a mesh' if mesh is not None else ''}")
+    return bool(graph)
+
+
+def _host_or_device(batch: Mapping[str, Any]) -> Dict[str, Tensor]:
+    return {k: torch.as_tensor(v) for k, v in batch.items()}
+
+
+def _model_bound(model: Monodepth) -> list:
+    return list(model.parameters()) + list(model.buffers())
+
+
+def _train_bound(model: Monodepth, state: TrainState) -> list:
+    """What a captured train step updates in place: the model's
+    parameters, buffers and gradients, Adam's state and its rate."""
+    optimizer = state.optimizer
+    return (_model_bound(model) + [p.grad for p in model.parameters()]
+            + [v for entry in optimizer.state.values() for v in entry.values()
+               if isinstance(v, Tensor)]
+            + [group["lr"] for group in optimizer.param_groups])
+
+
 def _loss(out: Dict[str, Any], noise, cfg: Config) -> Tensor:
     loss, _ = monodepth_loss(
         out["disps"], out["warped"], out["sources"], out["target_pyr"],
@@ -370,8 +430,98 @@ def _metrics(loss: Tensor, out: Dict[str, Any], batch: Dict[str, Tensor],
     return metrics
 
 
+def _check_optimizer(state: TrainState) -> None:
+    if state.optimizer is None:
+        raise ValueError("the train step needs an optimizer: build the "
+                         "state with create_state(cfg, model, "
+                         "steps_per_epoch=...)")
+
+
+def _train_runner(model: Monodepth, cfg: Config, device: torch.device,
+                  sampler: Sampler | None, mesh: Mesh | None):
+    """run(state, batch on the device, noise, lr=None) -> metrics: one
+    train step's body (the lr tensor, when given, replaces schedule(step):
+    `TrainState.apply_gradients`)."""
+    warp = _spatial_warp(cfg, mesh, sampler, train=True)
+    data_group = mesh.data_group if mesh is not None else None
+
+    def run(state: TrainState, batch: Dict[str, Tensor], noise, lr=None):
+        model.train()
+        with record_function("train_step/forward"), \
+                sync_batch_stats(model, data_group):
+            batch, own_frames = _gather_frames(batch, mesh)
+            out = apply_and_warp(model, batch, cfg, train=True,
+                                 sampler=warp or sampler, own_frames=own_frames)
+            loss = _loss(out, _rank_noise(noise, out, cfg, mesh), cfg)
+        with record_function("train_step/backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if mesh is not None:
+                average_gradients(model, mesh)
+        with record_function("train_step/optimizer"):
+            state.apply_gradients(lr)
+        return _metrics(loss, out, batch, cfg.train_gt_metrics, mesh)
+
+    return run
+
+
+def _train_inputs(cfg: Config, state: TrainState, batches: Sequence[Mapping[str, Any]],
+                  noises: Sequence[Mapping[int, Tensor]] | None,
+                  device: torch.device) -> Dict[str, Any]:
+    """The inputs of K captured train steps: the K batches (host or device
+    tensors), their tie-break noise (`noises`, else `draw_tie_noise` at
+    steps state.step + k) and their learning rates schedule(state.step +
+    k), which become 0-d f32 tensors on the card (`training.graphs`)."""
+    batches = [_host_or_device(b) for b in batches]
+    if noises is None:
+        noises = [draw_tie_noise(cfg, b, state.seed, state.step + k, None, device)
+                  for k, b in enumerate(batches)]
+    return {"batches": batches, "noise": [dict(n) for n in noises],
+            "lr": [float(state.schedule(state.step + k)) for k in range(len(batches))]}
+
+
+def _graphed_train(model: Monodepth, cfg: Config, device: torch.device,
+                   sampler: Sampler | None):
+    """steps(state, batches, noises=None) -> [metrics of each step]: the K
+    = len(batches) train steps of one call as one CUDA graph, a graph per
+    K and batch shape. The graph is bound to the `TrainState` of the first
+    call; another state raises. Each call draws the K steps' tie-break
+    noise (`draw_tie_noise`, steps state.step + k) unless `noises` are
+    given, and hands in the K learning rates schedule(state.step + k)."""
+    run = _train_runner(model, cfg, device, sampler, None)
+    bound = {}
+
+    def body(inputs):
+        return [run(bound["state"], batch, noise, lr) for batch, noise, lr
+                in zip(inputs["batches"], inputs["noise"], inputs["lr"])]
+
+    graphed = GraphedStep(body, device, lambda: _train_bound(model, bound["state"]))
+
+    def steps(state: TrainState, batches, noises=None):
+        _check_optimizer(state)
+        if not bound:
+            if state.model is not model:
+                raise ValueError("the state's model is not the step's model")
+            if not all(isinstance(g["lr"], Tensor) and g["capturable"]
+                       for g in state.optimizer.param_groups):
+                raise ValueError("a captured train step needs capturable Adam "
+                                 "with a tensor learning rate (make_optimizer "
+                                 "on a CUDA device)")
+            bound["state"] = state
+        elif state is not bound["state"]:
+            raise ValueError("this captured train step is bound to the "
+                             "TrainState of its first call; make another "
+                             "step for another state")
+        inputs = _train_inputs(cfg, state, batches, noises, device)
+        model.train()
+        return graphed(inputs, state, steps=len(batches))
+
+    return steps
+
+
 def make_train_step(model: Monodepth, cfg: Config, device=None,
-                    sampler: Sampler | None = None, mesh: Mesh | None = None):
+                    sampler: Sampler | None = None, mesh: Mesh | None = None,
+                    graph: bool | None = None):
     """Training step: forward, warps, loss, backward and one Adam update
     (reference: model_train.py:64-71; JAX: `_train_step_body`).
 
@@ -385,66 +535,68 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
     state.step, None)` unless `noise` ({scale: [B, H, W, n_sources]
     tensor}) is given. `device` defaults to the card. The forward,
     backward and optimizer phases are `torch.profiler` ranges
-    ("train_step/forward", "train_step/backward", "train_step/optimizer").
+    ("train_step/forward", "train_step/backward", "train_step/optimizer")
+    of the eager step and of a capture, not of a replay.
+
+    `graph` (module docstring): on a card without a mesh the step is a
+    CUDA graph, bound to the `TrainState` of its first call.
 
     With `mesh`, `batch` is this rank's piece (`parallel.shard_batch`),
     `noise` is the global batch's, the step runs on the mesh's device and
     every rank must call it (module docstring); `state` must start alike
     on every rank (`parallel.replicate`)."""
     device = _step_device(device, mesh)
-    warp = _spatial_warp(cfg, mesh, sampler, train=True)
-    data_group = mesh.data_group if mesh is not None else None
+    if _graphed(graph, device, mesh):
+        steps = _graphed_train(model, cfg, device, sampler)
+
+        def graphed_step(state: TrainState, batch: Mapping[str, Any],
+                         noise: Mapping[int, Tensor] | None = None):
+            return steps(state, [batch], None if noise is None else [noise])[0]
+
+        return graphed_step
+    run = _train_runner(model, cfg, device, sampler, mesh)
 
     def train_step(state: TrainState, batch: Mapping[str, Any],
                    noise: Mapping[int, Tensor] | None = None):
-        if state.optimizer is None:
-            raise ValueError("the train step needs an optimizer: build the "
-                             "state with create_state(cfg, model, "
-                             "steps_per_epoch=...)")
-        model.train()
-        batch = _to_device(batch, device)
-        with record_function("train_step/forward"), \
-                sync_batch_stats(model, data_group):
-            batch, own_frames = _gather_frames(batch, mesh)
-            out = apply_and_warp(model, batch, cfg, train=True,
-                                 sampler=warp or sampler, own_frames=own_frames)
-            if noise is None:
-                noise = tie_noise_generator(state.seed, state.step, None, device)
-            loss = _loss(out, _rank_noise(noise, out, cfg, mesh), cfg)
-        with record_function("train_step/backward"):
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            if mesh is not None:
-                average_gradients(model, mesh)
-        with record_function("train_step/optimizer"):
-            state.apply_gradients()
-        return _metrics(loss, out, batch, cfg.train_gt_metrics, mesh)
+        _check_optimizer(state)
+        if noise is None:
+            noise = tie_noise_generator(state.seed, state.step, None, device)
+        return run(state, _to_device(batch, device), noise)
 
     return train_step
 
 
 def make_train_multi_step(model: Monodepth, cfg: Config, device=None,
-                          mesh: Mesh | None = None):
+                          mesh: Mesh | None = None, graph: bool | None = None):
     """K train steps per call (`--steps_per_call`; JAX: `lax.scan` of the
     step body over a [K, B, ...] superbatch). Returns
     multi_step(state, batches) -> {name: [K] tensor}: `batches` is a
     sequence of K consecutive batches (this rank's pieces, with `mesh`),
     and the K steps run in order, each as `make_train_step`'s (same noise
     keys, same updates), so K calls of that step give the same state and
-    metrics. The batches are not stacked: eagerly that would only add a
-    copy. Capturing the K steps in a CUDA graph, which needs them in
-    static buffers, is later work."""
-    train_step = make_train_step(model, cfg, device, mesh=mesh)
+    metrics. On a card without a mesh (`graph`, as `make_train_step`) the
+    K steps are one CUDA graph, the counterpart of the scan: one replay a
+    call. Eagerly they are K steps; the batches are not stacked, which
+    would only add a copy."""
+    device = _step_device(device, mesh)
+    if _graphed(graph, device, mesh):
+        steps = _graphed_train(model, cfg, device, None)
+    else:
+        train_step = make_train_step(model, cfg, device, mesh=mesh, graph=False)
+
+        def steps(state, batches):
+            return [train_step(state, batch) for batch in batches]
 
     def multi_step(state: TrainState, batches: Sequence[Mapping[str, Any]]):
-        metrics = [train_step(state, batch) for batch in batches]
+        metrics = steps(state, list(batches))
         return {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
 
     return multi_step
 
 
 def make_eval_step(model: Monodepth, cfg: Config, device=None,
-                   sampler: Sampler | None = None, mesh: Mesh | None = None):
+                   sampler: Sampler | None = None, mesh: Mesh | None = None,
+                   graph: bool | None = None):
     """Validation step: full forward + loss + metrics, no gradient
     (reference: model_train.py:75-79).
 
@@ -454,21 +606,41 @@ def make_eval_step(model: Monodepth, cfg: Config, device=None,
     within the pass; the tie-break noise comes from
     `tie_noise_generator(state.seed, state.step, index)` unless `noise`
     ({scale: [B, H, W, n_sources] tensor}) is given. `device` defaults to
-    the card. With `mesh`, as `make_train_step`."""
+    the card. `graph` as `make_train_step`'s; the graph reads `state` for
+    its noise keys only. With `mesh`, as `make_train_step`."""
     device = _step_device(device, mesh)
     warp = _spatial_warp(cfg, mesh, sampler, train=False)
+
+    def run(batch: Dict[str, Tensor], noise):
+        model.eval()
+        batch, own_frames = _gather_frames(batch, mesh)
+        out = apply_and_warp(model, batch, cfg, train=False,
+                             sampler=warp or sampler, own_frames=own_frames)
+        loss = _loss(out, _rank_noise(noise, out, cfg, mesh), cfg)
+        return _metrics(loss, out, batch, True, mesh)
+
+    if _graphed(graph, device, mesh):
+        graphed = GraphedStep(lambda inputs: run(inputs["batch"], inputs["noise"]),
+                              device, lambda: _model_bound(model))
+
+        @torch.inference_mode()
+        def graphed_step(state: TrainState, batch: Mapping[str, Any],
+                         index: int = 0, noise: Mapping[int, Tensor] | None = None):
+            batch = _host_or_device(batch)
+            if noise is None:
+                noise = draw_tie_noise(cfg, batch, state.seed, state.step, index,
+                                       device)
+            model.eval()
+            return graphed({"batch": batch, "noise": dict(noise)})
+
+        return graphed_step
 
     @torch.inference_mode()
     def eval_step(state: TrainState, batch: Mapping[str, Any], index: int = 0,
                   noise: Mapping[int, Tensor] | None = None):
-        model.eval()
-        batch, own_frames = _gather_frames(_to_device(batch, device), mesh)
-        out = apply_and_warp(model, batch, cfg, train=False,
-                             sampler=warp or sampler, own_frames=own_frames)
         if noise is None:
             noise = tie_noise_generator(state.seed, state.step, index, device)
-        loss = _loss(out, _rank_noise(noise, out, cfg, mesh), cfg)
-        return _metrics(loss, out, batch, True, mesh)
+        return run(_to_device(batch, device), noise)
 
     return eval_step
 
@@ -486,22 +658,31 @@ class DepthInference(torch.nn.Module):
         self.bf16 = cfg.precision == "bf16"
 
     def forward(self, images: Tensor) -> Tensor:
-        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=self.bf16):
+        with torch.autocast(images.device.type, dtype=torch.bfloat16,
+                            enabled=self.bf16, cache_enabled=False):
             disps = self.model.depth(images)
         scaled_disp, _ = disparity_to_depth(disps[0].float(), 1e-3, 80.0)
         return scaled_disp[..., 0]
 
 
-def make_infer_step(model: Monodepth, cfg: Config, device=None):
+def make_infer_step(model: Monodepth, cfg: Config, device=None,
+                    graph: bool | None = None):
     """Depth-only batched inference: infer(images [B, H, W, 3] in [0, 1])
     -> scaled disparity [B, H, W] (`DepthInference`, the model in eval
-    mode). `device` defaults to the card."""
+    mode). `device` defaults to the card. `graph` as `make_train_step`'s:
+    on a card a graph per batch shape."""
     device = resolve_device(device)
     module = DepthInference(model, cfg)
+
+    def run(images: Tensor) -> Tensor:
+        return module(images.to(device, torch.float32))
+
+    graphed = GraphedStep(run, device, lambda: _model_bound(model)) \
+        if _graphed(graph, device, None) else run
 
     @torch.inference_mode()
     def infer(images) -> Tensor:
         model.eval()
-        return module(torch.as_tensor(images).to(device, torch.float32))
+        return graphed(torch.as_tensor(images))
 
     return infer

@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel (the warp sampler's, its
 backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
 against its plain PyTorch version, the launches of the eval and train
-steps (with --remat too), and `prefetch_to_device`'s batches on the card. Marked `gpu`; each test skips without a
-CUDA device. This file imports neither jax nor the JAX package and uses no
+steps (with --remat too), `prefetch_to_device`'s batches on the card, and
+the steps captured as CUDA graphs against the eager steps. Marked `gpu`;
+each test skips without a CUDA device. This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -669,3 +670,149 @@ def test_export_inference_on_the_card(cuda):
         want = infer(images)
         assert got.shape == (b, 64, 128) and got.device.type == "cuda"
         assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# --- the steps as CUDA graphs: captured against eager, max |diff| 0 -----
+
+@pytest.fixture
+def deterministic(cuda):
+    """cuDNN deterministic, as every exact pair on the card: a capture
+    keeps the algorithms cuDNN picks, and only deterministic ones pick
+    alike in two runs."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = saved
+
+
+GRAPH_CFG = dict(height=64, width=96, batch=2, weight_init=False)  # bf16
+
+
+def _graph_batches(n, seed=0):
+    cfg = Config(**GRAPH_CFG)
+    out = []
+    for i in range(n):
+        scenes = make_planar_scenes(cfg.batch, cfg.height, cfg.width, seed=seed + i)
+        out.append({k: scenes[k] for k in ("frames", "jitter", "K", "inv_K")})
+    return out
+
+
+def _counts():
+    return (warp_sample.launches, warp_sample_grads.launches, grid_vjp.launches)
+
+
+def _assert_train_states_equal(a, b):
+    for (name, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        assert torch.equal(x, y), name
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    for i in sa:
+        for key in sa[i]:
+            assert torch.equal(sa[i][key], sb[i][key]), (i, key)
+    assert a.step == b.step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_captured_train_steps_equal_eager(deterministic, k):
+    """3 calls of the captured step (warm-up, capture and replay, replay)
+    against the eager step from a deep copy: the state (parameters,
+    buffers, Adam) and the metrics equal, 8 K1 and 8 K1-bwd launches a
+    step counted on both, Adam's device step equal to `state.step`; K=2:
+    `make_train_multi_step`, 2 steps a call."""
+    import copy
+
+    from monodepth_tpu_torch.training.step import make_train_multi_step
+
+    cfg = Config(**GRAPH_CFG)
+    batches = _graph_batches(3 * k)
+    state = create_state(cfg, build_model(cfg), steps_per_epoch=4)
+    twin = copy.deepcopy(state)
+    if k == 1:
+        graphed, eager = make_train_step(state.model, cfg), \
+            make_train_step(twin.model, cfg, graph=False)
+        calls = [b for b in batches]
+    else:
+        graphed, eager = make_train_multi_step(state.model, cfg), \
+            make_train_multi_step(twin.model, cfg, graph=False)
+        calls = [batches[i:i + k] for i in range(0, len(batches), k)]
+    counts = []
+    for fn, s in ((graphed, state), (eager, twin)):
+        before = _counts()
+        metrics = [fn(s, c) for c in calls]
+        torch.cuda.synchronize()
+        counts.append(tuple(a - b for a, b in zip(_counts(), before)))
+        s.metrics = metrics
+    assert counts == [(0, 24 * k, 24 * k)] * 2
+    _assert_train_states_equal(state, twin)
+    for a, b in zip(state.metrics, twin.metrics):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    steps = {float(e["step"]) for e in state.optimizer.state.values()}
+    assert steps == {float(state.step)} == {3.0 * k}
+
+
+@pytest.mark.gpu
+def test_captured_eval_and_infer_equal_eager(deterministic):
+    """The eval step (3 batches, each its own noise index) and the infer
+    step (batch 2 three times, then batch 5: a second capture) captured
+    against `graph=False`: max |diff| 0, K2 8 launches an eval call."""
+    from monodepth_tpu_torch.training.step import make_infer_step
+
+    cfg = Config(**GRAPH_CFG)
+    batches = _graph_batches(3)
+    model = build_model(cfg)
+    state = create_state(cfg, model)
+    results = []
+    for graph in (None, False):
+        step, infer = make_eval_step(model, cfg, graph=graph), \
+            make_infer_step(model, cfg, graph=graph)
+        before = _counts()
+        metrics = [step(state, b, i) for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_counts(), before)) == (24, 0, 0)
+        images = [b["frames"][:, 0].astype(np.float32) / 255.0 for b in batches]
+        images.append(np.concatenate(images + images[:1])[:5])
+        images.append(images[-1] * 0.5)
+        results.append((metrics, [infer(x) for x in images]))
+    (m_graph, d_graph), (m_eager, d_eager) = results
+    for a, b in zip(m_graph, m_eager):
+        assert a.keys() == b.keys()
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    for a, b in zip(d_graph, d_eager):
+        assert torch.equal(a, b)
+    assert d_graph[-1].shape == (5, 64, 96)
+
+
+@pytest.mark.gpu
+def test_captured_step_guards(deterministic):
+    """A captured train step bound to one state refuses another; a restore
+    (which replaces Adam's moments) makes the next call capture again,
+    and the run equals one never interrupted."""
+    import copy
+    import tempfile
+
+    from monodepth_tpu_torch.training.checkpoint import Checkpointer
+
+    cfg = Config(**GRAPH_CFG)
+    batches = _graph_batches(5)
+    state = create_state(cfg, build_model(cfg), steps_per_epoch=4)
+    twin = copy.deepcopy(state)
+    step = make_train_step(state.model, cfg)
+    for b in batches[:3]:
+        step(state, b)
+    with pytest.raises(ValueError, match="bound to the TrainState"):
+        step(twin, batches[0])
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(tmp).save(0, state)
+        for b in batches[3:]:  # the uninterrupted run
+            step(state, b)
+        Checkpointer(tmp).restore(twin)
+        resumed = make_train_step(twin.model, cfg)
+        for b in batches[:2]:  # warm up and capture on the restored state
+            resumed(twin, b)
+        Checkpointer(tmp).restore(twin)  # moments replaced under the capture
+        for b in batches[3:]:
+            resumed(twin, b)
+    torch.cuda.synchronize()
+    _assert_train_states_equal(state, twin)

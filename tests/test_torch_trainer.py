@@ -11,7 +11,8 @@ kernels' plain versions (`use_pallas`).
   the SIGTERM checkpoint, `--data_parallel` above the one process;
 - `python -m monodepth_tpu_torch.model_train --device cpu` trains,
   checkpoints and exports, and `model_test` scores the export;
-- the convergence proof tool at a tiny size."""
+- the convergence proof tool at a tiny size;
+- `tools/plot_curves.py` on a Trainer run's curves."""
 
 import dataclasses
 import json
@@ -133,6 +134,38 @@ def test_resume_equals_uninterrupted_run(tree, tmp_path):
     for module in ("encoder", "decoder", "pose_encoder", "pose_decoder"):
         assert os.path.exists(os.path.join(whole.save_dir, f"{module}2.npz"))
     assert os.path.exists(os.path.join(whole.save_dir, "state_0001.pt"))
+
+
+def test_plot_curves_reads_the_trainer_curves(tree, tmp_path, capsys):
+    """`tools/plot_curves.py` (the JAX tool's copy) on a Trainer run: it
+    reads every `loss/<split>_<metric>.npy` the run saved, one value an
+    epoch, and renders them when matplotlib is there (else says so)."""
+    from monodepth_tpu_torch.tools import plot_curves
+
+    trainer = Trainer(_cfg(tree, tmp_path, save="curves"), device="cpu")
+    trainer.train()
+    curves = plot_curves.load_curves(trainer.save_dir)
+    assert set(curves) == {"loss", *METRIC_NAMES}
+    records = _records(trainer.save_dir)
+    for metric, series in curves.items():
+        assert set(series) == {"train", "valid"}, metric
+        for split, values in series.items():
+            saved = np.load(os.path.join(trainer.save_dir, "loss", f"{split}_{metric}.npy"))
+            assert values.shape == (2,) and np.array_equal(values, saved, equal_nan=True)
+    assert [r["train"]["loss"] for r in records] == list(curves["loss"]["train"])
+    assert [r["valid"]["abs_rel"] for r in records] == list(curves["abs_rel"]["valid"])
+
+    out = tmp_path / "curves.png"
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        assert plot_curves.main([trainer.save_dir, str(out)]) == 1
+        assert "matplotlib is not installed" in capsys.readouterr().out
+    else:
+        assert plot_curves.main([trainer.save_dir, str(out)]) == 0
+        assert out.stat().st_size > 0
+    assert plot_curves.main([]) == 2
+    assert plot_curves.load_curves(str(tmp_path / "none")) == {}
 
 
 @pytest.mark.parametrize("pose_type", ["separate", "shared", "posecnn"])
