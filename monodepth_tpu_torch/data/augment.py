@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from monodepth_tpu_torch.ops.sampling import device_constant
+from monodepth_tpu_torch.parallel import rows
 
 Tensor = torch.Tensor
 
@@ -72,7 +73,8 @@ def color_jitter(img: Tensor, jitter: Tensor) -> Tensor:
     out = torch.clamp(img * bright, 0.0, 1.0)
 
     # contrast blends toward each frame's own gray mean, over (H, W) only
-    gray_mean = _grayscale(out).mean(dim=(-3, -2), keepdim=True)
+    # (the whole frame's, on row pieces: `parallel.rows`)
+    gray_mean = rows.spatial_mean(_grayscale(out), (-3, -2), keepdim=True)
     out = torch.clamp(contrast * out + (1.0 - contrast) * gray_mean, 0.0, 1.0)
 
     out = torch.clamp(sat * out + (1.0 - sat) * _grayscale(out), 0.0, 1.0)

@@ -13,7 +13,9 @@ The identity term does not depend on the scale, so it is computed once
 (as in `monodepth_tpu.losses.reprojection`). The noise is either handed
 in as {scale: 1e-5·N(0,1) tensor} or drawn from a `torch.Generator`:
 `jax.random` streams cannot be reproduced in torch, so tests hand both
-packages the same arrays.
+packages the same arrays. On a spatial mesh's row pieces
+(`parallel.rows`) the total is this rank's part of the loss: the spatial
+ranks' parts add up to it, and the noise handed in is this rank's rows.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from monodepth_tpu_torch.losses.smoothness import smooth_loss
 from monodepth_tpu_torch.ops.ssim import reprojection_error
+from monodepth_tpu_torch.parallel import rows
 
 Tensor = torch.Tensor
 Noise = Union[Mapping[int, Tensor], torch.Generator]
@@ -61,8 +64,11 @@ def monodepth_loss(
     scales: Sequence[int] = (0, 1, 2, 3),
     disp_smoothness: float = 1e-3,
     use_automasking: bool = True,
+    choices: bool = False,
 ) -> tuple[Tensor, dict]:
-    """Total loss and {photometric/s, smooth/s} terms.
+    """Total loss and {photometric/s, smooth/s} terms; with `choices` also
+    {choice/s: [B, H, W] int64}, the channel each pixel's minimum takes
+    (the identity channels first, then the reprojections).
 
     disp_pyramid:   scale -> [B, H/2^s, W/2^s, 1] sigmoid disparity
     warped_colors:  scale -> per-source full-res warps [B, H, W, 3]
@@ -77,6 +83,10 @@ def monodepth_loss(
         identity = torch.cat(
             [reprojection_error(src, target) for src in source_colors], -1)
 
+    # on row pieces a coarse scale's level may run whole (`parallel.rows`'
+    # level rule, the depth decoder's levels): every rank then holds its
+    # smoothness whole, and each adds its share
+    levels = rows.resnet_levels()
     aux = {}
     total = 0.0
     for scale in scales:
@@ -89,9 +99,16 @@ def monodepth_loss(
                                 identity.device)
             else:
                 tie = noise[scale].to(identity.device, identity.dtype)
-        photometric = min_reprojection(reproj, identity, tie).mean()
+        photometric = rows.loss_mean(min_reprojection(reproj, identity, tie))
+        if choices:
+            combined = reproj if identity is None \
+                else torch.cat([identity + tie, reproj], -1)
+            aux[f"choice/{scale}"] = combined.detach().argmin(-1)
 
-        smooth = smooth_loss(disp_pyramid[scale], color_pyramid[scale])
+        with rows.level(levels[scale]):
+            smooth = smooth_loss(disp_pyramid[scale], color_pyramid[scale])
+        if rows.current() is not None and not levels[scale]:
+            smooth = smooth / rows.current().n
         aux[f"photometric/{scale}"] = photometric
         aux[f"smooth/{scale}"] = smooth
         total = total + (photometric

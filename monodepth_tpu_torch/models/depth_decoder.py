@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from monodepth_tpu_torch.parallel import rows
+
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
 
@@ -28,13 +30,15 @@ def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
     Not `F.pad(mode="reflect")`: its CUDA backward adds with atomics, in an
     order that changes from run to run, so two bf16 train steps from one
     state gave encoder gradients 6e-3 apart (rel-L2, H100). The backward
-    of slices and a concatenation is deterministic."""
-    for dim in (2, 3):
-        n = x.shape[dim]
-        lo = x.narrow(dim, 1, 1) if n > 1 else x
-        hi = x.narrow(dim, n - 2, 1) if n > 1 else x
-        x = torch.cat([lo, x, hi], dim)
-    return x
+    of slices and a concatenation is deterministic.
+
+    On row pieces (`parallel.rows`) the H pad takes the neighbours' rows
+    and reflects at the image's edges."""
+    x = rows.reflect_rows(x, 2)
+    n = x.shape[3]
+    lo = x.narrow(3, 1, 1) if n > 1 else x
+    hi = x.narrow(3, n - 2, 1) if n > 1 else x
+    return torch.cat([lo, x, hi], 3)
 
 
 class Conv3x3(nn.Module):
@@ -84,17 +88,24 @@ class DepthDecoder(nn.Module):
         self.decoder = nn.ModuleList(convs)
 
     def forward(self, features) -> Dict[int, torch.Tensor]:
+        # level i is H/2^i high: row pieces or whole as the encoder ran it
+        # (`parallel.rows`); the nearest upsample stays on a rank's rows,
+        # and a whole level feeding a sharded one is split first
+        levels = rows.resnet_levels()
         outputs = {}
         x = features[-1]
         for n, i in enumerate(range(4, -1, -1)):
-            x = self.decoder[2 * n](x)
+            with rows.level(levels[i + 1]):
+                x = self.decoder[2 * n](x)
             x = F.interpolate(x, scale_factor=2, mode="nearest")
+            x = rows.relevel(x, levels[i + 1], levels[i])
             if self.use_skips and i > 0:
                 x = torch.cat([x, features[i - 1].to(x.dtype)], 1)
-            x = self.decoder[2 * n + 1](x)
-            if i in self.scales:
-                head = self.decoder[10 + self.scales.index(i)]
-                y = head(x)
-                outputs[i] = torch.sigmoid(
-                    y.to(torch.promote_types(torch.float32, y.dtype)))
+            with rows.level(levels[i]):
+                x = self.decoder[2 * n + 1](x)
+                if i in self.scales:
+                    head = self.decoder[10 + self.scales.index(i)]
+                    y = head(x)
+                    outputs[i] = torch.sigmoid(
+                        y.to(torch.promote_types(torch.float32, y.dtype)))
         return outputs

@@ -16,6 +16,8 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from monodepth_tpu_torch.parallel import rows
+
 
 class PoseDecoder(nn.Module):
     """num_input_features: how many encoder pyramids come in (1 for the
@@ -36,14 +38,17 @@ class PoseDecoder(nn.Module):
         ])
 
     def forward(self, input_features) -> Tuple[torch.Tensor, torch.Tensor]:
-        # one shared squeeze conv over every pyramid's last level
-        out = torch.cat([torch.relu(self.net[0](f[-1]))
-                         for f in input_features], 1)
-        out = torch.relu(self.net[1](out))
-        out = torch.relu(self.net[2](out))
-        out = self.net[3](out)
-        # global average in at least f32 (an f64 model stays f64)
-        out = out.to(torch.promote_types(torch.float32, out.dtype)).mean(dim=(2, 3))
+        # the encoder's last level, on row pieces or whole (`parallel.rows`)
+        with rows.level(rows.resnet_levels()[-1]):
+            # one shared squeeze conv over every pyramid's last level
+            out = torch.cat([torch.relu(rows.conv2d(self.net[0], f[-1]))
+                             for f in input_features], 1)
+            out = torch.relu(rows.conv2d(self.net[1], out))
+            out = torch.relu(rows.conv2d(self.net[2], out))
+            out = rows.conv2d(self.net[3], out)
+            # global average in at least f32 (an f64 model stays f64)
+            out = rows.spatial_mean(
+                out.to(torch.promote_types(torch.float32, out.dtype)), (2, 3))
         out = 0.01 * out.reshape(-1, self.num_frames, 1, 6)
         return out[..., :3], out[..., 3:]
 
@@ -69,9 +74,18 @@ class PoseCNN(nn.Module):
         self.pose_conv = nn.Conv2d(cin, 6 * self.num_frames, 1)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        for conv in self.net:
-            x = torch.relu(conv(x))
-        out = self.pose_conv(x)
-        out = out.to(torch.promote_types(torch.float32, out.dtype)).mean(dim=(2, 3))
+        # on row pieces (`parallel.rows`) while the level rule holds, then
+        # whole: at n = 2 and 192 rows the 3-row level gathers
+        levels = rows.posecnn_levels([k for _, k in self.SPECS])
+        was = rows.current() is not None
+        for conv, now in zip(self.net, levels[1:]):
+            x = rows.relevel(x, was, now)
+            with rows.level(now):
+                x = torch.relu(rows.conv2d(conv, x))
+            was = now
+        with rows.level(was):
+            out = rows.conv2d(self.pose_conv, x)
+            out = rows.spatial_mean(
+                out.to(torch.promote_types(torch.float32, out.dtype)), (2, 3))
         out = 0.01 * out.reshape(-1, self.num_frames, 1, 6)
         return out[..., :3], out[..., 3:]

@@ -411,13 +411,15 @@ def _kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def dy_span(grid: Tensor) -> Tensor:
+def dy_span(grid: Tensor, row0: int = 0, full_height: int | None = None) -> Tensor:
     """Mean over 8-row slabs of the vertical anchor offset's span (px):
     the `warp_span` telemetry metric of the eval step. A large value means
-    a degenerate warp field. Needs H % 8 == 0."""
+    a degenerate warp field. Needs H % 8 == 0. With `full_height`, `grid`
+    holds the rows from the global row `row0` of an image that high."""
     B, H, W, _ = grid.shape
-    y = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
-    y0 = torch.clamp(torch.floor(y), 0, H - 2)
-    rows = torch.arange(H, dtype=y0.dtype, device=y0.device)
+    Hf = full_height or H
+    y = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (Hf - 1), 0.0, Hf - 1)
+    y0 = torch.clamp(torch.floor(y), 0, Hf - 2)
+    rows = torch.arange(row0, row0 + H, dtype=y0.dtype, device=y0.device)
     slabs = (y0 - rows[None, :, None]).reshape(B, H // SLAB, SLAB * W)
     return (slabs.amax(-1) - slabs.amin(-1)).mean()

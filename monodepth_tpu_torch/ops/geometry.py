@@ -74,25 +74,31 @@ def transform_from_parameters(axisangle: Tensor, translation: Tensor,
     return R @ T if invert else T @ R
 
 
-def _homogeneous_pixel_grid(height: int, width: int, dtype, device) -> Tensor:
-    """[3, H*W] rows = (x, y, 1)."""
-    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+def _homogeneous_pixel_grid(height: int, width: int, dtype, device,
+                            row0: int = 0) -> Tensor:
+    """[3, H*W] rows = (x, y, 1), y from the global row `row0`."""
+    ys, xs = torch.meshgrid(torch.arange(row0, row0 + height, device=device),
                             torch.arange(width, device=device), indexing="ij")
     pix = torch.stack([xs, ys, torch.ones_like(xs)], 0).reshape(3, -1)
     return pix.to(dtype)
 
 
-def warp_grid(depth: Tensor, inv_K: Tensor, K: Tensor, T: Tensor) -> Tensor:
+def warp_grid(depth: Tensor, inv_K: Tensor, K: Tensor, T: Tensor,
+              row0: int = 0, full_height: int | None = None) -> Tensor:
     """Fused backproject∘project: depth [B,H,W(,1)] + intrinsics + SE(3)
     -> normalized [-1, 1] sample grid [B, H, W, 2] (align_corners=True).
 
         pts = (K T)[:3] @ [depth * (inv_K[:3,:3] @ pix); 1]
             = A @ pix * depth + P[:, 3:]     with A = (K T)[:3, :3] inv_K[:3,:3]
+
+    With `full_height`, `depth` holds the rows from the global row `row0`
+    of an image `full_height` rows high (a spatial mesh's row piece), and
+    the grid of those rows comes out in the whole image's coordinates.
     """
     if depth.ndim == 4:
         depth = depth[..., 0]
     B, H, W = depth.shape
-    pix = _homogeneous_pixel_grid(H, W, depth.dtype, depth.device)
+    pix = _homogeneous_pixel_grid(H, W, depth.dtype, depth.device, row0)
 
     P = (K @ T)[:, :3, :]                               # [B,3,4]
     A = P[:, :, :3] @ inv_K[:, :3, :3]                  # [B,3,3]
@@ -100,5 +106,5 @@ def warp_grid(depth: Tensor, inv_K: Tensor, K: Tensor, T: Tensor) -> Tensor:
     pts = rays * depth.reshape(B, 1, H * W) + P[:, :, 3:4]
     xy = pts[:, :2, :] / (pts[:, 2:3, :] + 1e-7)
     xy = xy.reshape(B, 2, H, W).permute(0, 2, 3, 1)
-    scale = device_constant((W - 1, H - 1), xy.dtype, xy.device)
+    scale = device_constant((W - 1, (full_height or H) - 1), xy.dtype, xy.device)
     return ((xy / scale - 0.5) * 2.0).contiguous()

@@ -12,6 +12,8 @@ import functools
 import numpy as np
 import torch
 
+from monodepth_tpu_torch.parallel import rows as row_pieces
+
 Tensor = torch.Tensor
 
 
@@ -127,13 +129,17 @@ def resize_bilinear(image: Tensor, height: int, width: int,
                     align_corners: bool = False) -> Tensor:
     """Separable bilinear resize of [B, H, W, C] as two products with
     constant interpolation matrices; matches `F.interpolate(...,
-    mode="bilinear", align_corners=...)`."""
+    mode="bilinear", align_corners=...)`. On row pieces (`parallel.rows`)
+    `height` is the whole image's, and the rows come out this rank's."""
     B, H, W, C = image.shape
-    if (H, W) == (height, width):
+    if (row_pieces.global_rows(H), W) == (height, width):
         return image
-    rows = _resize_matrix(H, height, align_corners, image.dtype, image.device)
+    if row_pieces.sharded() is not None:
+        out = row_pieces.resize_rows(image, height, align_corners)
+    else:
+        rows = _resize_matrix(H, height, align_corners, image.dtype, image.device)
+        out = torch.einsum("oh,bhwc->bowc", rows, image)
     cols = _resize_matrix(W, width, align_corners, image.dtype, image.device)
-    out = torch.einsum("oh,bhwc->bowc", rows, image)
     return torch.einsum("ow,bhwc->bhoc", cols, out)
 
 

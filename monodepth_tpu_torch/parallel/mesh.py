@@ -8,17 +8,19 @@ laid out row-major as JAX's `devices.reshape(data, spatial)`:
   data     the global batch splits across the data ranks; the train step
            averages gradients and normalizes batch norm with the global
            batch's statistics.
-  spatial  each data rank's frames split by rows across its spatial group;
-           the warps run on row slabs with a halo from the neighbours
-           (training/step.py `_spatial_sampler`).
+  spatial  each data rank's frames split by rows across its spatial group,
+           and the step runs on those rows from the first op to the loss
+           (`parallel.rows`): convolutions, pools, pads and resizes read
+           halo rows from the neighbours (`extend_rows`), and the warps run
+           on row slabs (training/step.py `_spatial_sampler`).
 
 `init_distributed` starts the process group from torchrun's environment,
 `make_mesh` builds the groups, `shard_batch` cuts this rank's piece of a
 host batch, `replicate` broadcasts the state from rank 0 and
 `warm_collectives` touches every group before the first step. The
-differentiable collectives (`all_reduce_sum`, `split_rows`, `gather_rows`)
-carry gradients through batch norm's statistics and the row split of the
-warps.
+differentiable collectives (`all_reduce_sum`, `extend_rows`, `split_rows`,
+`gather_rows`) carry gradients through batch norm's statistics, the halo
+rows and the levels that run whole on every rank.
 """
 
 from __future__ import annotations
@@ -253,32 +255,92 @@ def all_gather_cat(x: Tensor, group, dim: int) -> Tensor:
     return torch.cat(parts, dim)
 
 
+def _swap(to_prev: Tensor, to_next: Tensor, from_prev: int, from_next: int,
+          mesh: Mesh, dim: int, fill: float = 0.0):
+    """Send `to_prev` to the previous rank of the spatial group and
+    `to_next` to the next, and receive `from_prev` rows (axis `dim`) from
+    the previous and `from_next` from the next, in one `batch_isend_irecv`
+    -> (rows from the previous rank, rows from the next). An edge rank
+    gets `fill` where it has no neighbour. Under gloo a card's rows go
+    through host memory: gloo sends and receives host tensors only."""
+    s, n = mesh.spatial_index, mesh.spatial
+    like = to_prev if to_prev.shape[dim] else to_next
+
+    def shape(rows):
+        out = list(like.shape)
+        out[dim] = rows
+        return out
+
+    wire = "cpu" if like.is_cuda and dist.get_backend(mesh.spatial_group) == "gloo" \
+        else like.device
+    ops, received = [], {}
+    for side, peer, rows, send in ((-1, s - 1, from_prev, to_prev),
+                                   (1, s + 1, from_next, to_next)):
+        if not 0 <= peer < n:
+            continue
+        rank = mesh.spatial_rank(peer)
+        if send.shape[dim]:
+            ops.append(dist.P2POp(dist.isend, send.to(wire).contiguous(), rank,
+                                  mesh.spatial_group))
+        if rows:
+            received[side] = torch.empty(shape(rows), dtype=like.dtype, device=wire)
+            ops.append(dist.P2POp(dist.irecv, received[side], rank, mesh.spatial_group))
+    if ops:
+        for request in dist.batch_isend_irecv(ops):
+            request.wait()
+    return tuple(received[side].to(like.device) if side in received
+                 else like.new_full(shape(rows), fill)
+                 for side, rows in ((-1, from_prev), (1, from_next)))
+
+
 def exchange_halo(own: Tensor, halo: int, mesh: Mesh):
     """Send the first `halo` rows (axis 1) of `own` to the previous rank
     of the spatial group and the last `halo` to the next, one
     `batch_isend_irecv` -> (rows from the previous rank, rows from the
     next). The edge ranks get zeros where they have no neighbour. Under
-    gloo a card's rows go through host memory: gloo sends and receives
-    host tensors only."""
+    gloo a card's rows go through host memory. No gradient (the warp's
+    sources carry none); `extend_rows` is the differentiable form."""
     shape = (own.shape[0], halo) + tuple(own.shape[2:])
-    s, n = mesh.spatial_index, mesh.spatial
-    if halo == 0 or n == 1:
+    if halo == 0 or mesh.spatial == 1:
         return own.new_zeros(shape), own.new_zeros(shape)
-    wire = "cpu" if own.is_cuda and dist.get_backend(mesh.spatial_group) == "gloo" \
-        else own.device
-    ops, received = [], {}
-    for side, peer, rows in ((-1, s - 1, own[:, :halo]),
-                             (1, s + 1, own[:, own.shape[1] - halo:])):
-        if 0 <= peer < n:
-            rank = mesh.spatial_rank(peer)
-            received[side] = torch.empty(shape, dtype=own.dtype, device=wire)
-            ops += [dist.P2POp(dist.isend, rows.to(wire).contiguous(), rank,
-                               mesh.spatial_group),
-                    dist.P2POp(dist.irecv, received[side], rank, mesh.spatial_group)]
-    for request in dist.batch_isend_irecv(ops):
-        request.wait()
-    return tuple(received[side].to(own.device) if side in received
-                 else own.new_zeros(shape) for side in (-1, 1))
+    return _swap(own[:, :halo], own[:, own.shape[1] - halo:], halo, halo, mesh, 1)
+
+
+class _ExtendRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: Tensor, top: int, bottom: int, mesh: Mesh, dim: int,
+                fill: float):
+        ctx.top, ctx.bottom, ctx.mesh, ctx.dim = top, bottom, mesh, dim
+        h = x.shape[dim]
+        # my first `bottom` rows are the previous rank's bottom halo, my
+        # last `top` rows the next rank's top halo
+        above, below = _swap(x.narrow(dim, 0, bottom), x.narrow(dim, h - top, top),
+                             top, bottom, mesh, dim, fill)
+        return torch.cat([above, x, below], dim)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        top, bottom, dim = ctx.top, ctx.bottom, ctx.dim
+        h = grad.shape[dim] - top - bottom
+        # each halo row's cotangent goes back to the rank that owns the row;
+        # the edge ranks' fill rows own no input, so theirs is dropped
+        from_prev, from_next = _swap(grad.narrow(dim, 0, top),
+                                     grad.narrow(dim, top + h, bottom),
+                                     bottom, top, ctx.mesh, dim)
+        out = grad.narrow(dim, top, h).clone()
+        out.narrow(dim, 0, bottom).add_(from_prev)
+        out.narrow(dim, h - top, top).add_(from_next)
+        return out, None, None, None, None, None
+
+
+def extend_rows(x: Tensor, top: int, bottom: int, mesh: Mesh, dim: int = 1,
+                fill: float = 0.0) -> Tensor:
+    """This rank's rows (axis `dim`) of a row-sharded tensor with `top`
+    rows of the previous rank above and `bottom` rows of the next below,
+    `fill` where the image ends; each side's halo needs that many rows a
+    rank. Differentiable: the backward sends each halo row's cotangent
+    back to its owner, where it adds to that rank's edge rows."""
+    return _ExtendRows.apply(x, top, bottom, mesh, dim, fill)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -305,58 +367,66 @@ def all_reduce_sum(x: Tensor, group) -> Tensor:
 
 class _SplitRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: Tensor, mesh: Mesh):
-        ctx.mesh = mesh
-        rows = x.shape[1] // mesh.spatial
-        return x[:, mesh.spatial_index * rows:(mesh.spatial_index + 1) * rows] \
-            .contiguous()
+    def forward(ctx, x: Tensor, mesh: Mesh, dim: int):
+        ctx.mesh, ctx.dim, ctx.shape = mesh, dim, x.shape
+        rows = x.shape[dim] // mesh.spatial
+        return x.narrow(dim, mesh.spatial_index * rows, rows).contiguous()
 
     @staticmethod
     def backward(ctx, grad: Tensor):
-        return all_gather_cat(grad, ctx.mesh.spatial_group, 1), None
+        out = grad.new_zeros(ctx.shape)
+        out.narrow(ctx.dim, ctx.mesh.spatial_index * grad.shape[ctx.dim],
+                   grad.shape[ctx.dim]).copy_(grad)
+        return out, None, None
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: Tensor, mesh: Mesh):
-        ctx.mesh = mesh
-        return all_gather_cat(x, mesh.spatial_group, 1)
+    def forward(ctx, x: Tensor, mesh: Mesh, dim: int):
+        ctx.mesh, ctx.dim = mesh, dim
+        return all_gather_cat(x, mesh.spatial_group, dim)
 
     @staticmethod
     def backward(ctx, grad: Tensor):
-        mesh = ctx.mesh
-        rows = grad.shape[1] // mesh.spatial
-        return grad[:, mesh.spatial_index * rows:
-                    (mesh.spatial_index + 1) * rows].contiguous(), None
+        mesh, dim = ctx.mesh, ctx.dim
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=mesh.spatial_group)
+        rows = grad.shape[dim] // mesh.spatial
+        return grad.narrow(dim, mesh.spatial_index * rows, rows).contiguous(), \
+            None, None
 
 
-def split_rows(x: Tensor, mesh: Mesh) -> Tensor:
-    """This rank's rows (axis 1) of `x`, which every rank of the spatial
-    group holds whole. Backward: the group's row cotangents gathered, so
-    each rank gets the whole cotangent of `x`."""
-    return _SplitRows.apply(x, mesh)
+def split_rows(x: Tensor, mesh: Mesh, dim: int = 1) -> Tensor:
+    """This rank's rows (axis `dim`) of `x`, which every rank of the
+    spatial group holds alike. Each rank's loss is its own part of the
+    step's loss, so a rank's copy of `x` reaches that part through its own
+    rows only: the backward puts the rows' cotangent in zeros of `x`'s
+    shape, and `gather_rows` upstream sums the ranks' copies."""
+    return _SplitRows.apply(x, mesh, dim)
 
 
-def gather_rows(x: Tensor, mesh: Mesh) -> Tensor:
-    """The spatial group's row pieces (axis 1) stitched in order. Backward:
-    this rank's rows of the cotangent, which the ranks hold alike (the
-    loss downstream is replicated), so nothing is summed n times."""
-    return _GatherRows.apply(x, mesh)
+def gather_rows(x: Tensor, mesh: Mesh, dim: int = 1) -> Tensor:
+    """The spatial group's row pieces (axis `dim`) stitched in order, held
+    alike by every rank. Backward: the ranks' cotangents of the whole,
+    each from that rank's part of the loss, summed over the group; this
+    rank's rows of the sum."""
+    return _GatherRows.apply(x, mesh, dim)
 
 
 def average_gradients(model: torch.nn.Module, mesh: Mesh) -> None:
-    """Average the parameters' gradients over all ranks, in one flat
-    all-reduce. The spatial ranks of a data row hold the same gradient, so
-    this is the mean over data ranks, and every rank ends with the same
-    bits."""
+    """Sum the parameters' gradients over all ranks, in one flat
+    all-reduce, and divide by the data ranks. Each rank's gradient is that
+    of its own part of the loss: its items on a data mesh, its rows of its
+    data row's items on a spatial mesh (the spatial ranks' parts sum to the
+    data row's loss). So every rank ends with the same bits: the mean over
+    data ranks of the sum over spatial ranks."""
     if not dist.is_initialized() or mesh.size == 1:
         return
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat)
-    flat /= mesh.size
+    flat /= mesh.data
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
-

@@ -23,8 +23,12 @@ pose wiring runs: `--pose_type`, `--frame_ids` and `--pose_frames` go to
 the config with the other config flags. It writes OUT/rank<r>.json:
 the losses, the last train and the eval metrics, per-module gradient
 norms after the first step, a parameter checksum, the launches of K1, K2,
-both forms of K3 and K1-bwd (`grid_vjp`), and the spatial warps on slabs
-and fallbacks.
+both forms of K3 and K1-bwd (`grid_vjp`), the spatial warps on slabs
+and fallbacks, the rows of each feature level the rank ran on
+(`level_rows`: the depth encoder's input and its five outputs; on a
+spatial mesh H/n, H/2n, ... while the level rule holds) and, on a card,
+`peak_bytes`, the most memory the rank's steps held
+(`torch.cuda.max_memory_allocated`, reset before them).
 
 With `--reference`, once every rank has left the process group, rank 0
 runs the same steps on one device on the global batches, and the eval
@@ -32,15 +36,26 @@ step from the mesh's trained state, and adds the differences and the
 seconds they took (`reference_seconds`) to its report: loss and
 per-module gradient (rel-L2 after the first step), parameters and
 batch-norm running statistics (max abs after the last step), eval loss
-and depth metrics. `--f64` runs the model and the batches in float64
-(the CPU tests), where those differences are rounding only. `--save-grads` keeps both runs' first-step gradients in
-OUT/grads.pt, so that runs in two precisions can be compared.
+and depth metrics, the reference's own `peak_bytes`, and
+`choice_flips`: per scale, the pixels whose per-pixel minimum takes
+another channel on the mesh than on one device in the first train
+step's forward ("minimum"), those whose automask choice (an identity
+channel or a reprojection) differs ("automask"), and the pixels in all.
+Both peaks start from the same holding, the model's parameters and
+buffers on the card: rank 0 keeps its copy of the initial model on the
+host, and moves the mesh run's model and gradients off the card, and
+lets its Adam state go, before the reference starts. `--f64` runs the
+model and the batches in float64 (the CPU tests), where those
+differences are rounding only. `--save-grads` keeps both runs'
+first-step gradients in OUT/grads.pt, so that runs in two precisions
+can be compared.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import multiprocessing
 import os
@@ -71,9 +86,11 @@ from monodepth_tpu_torch.training.state import (
 )
 from monodepth_tpu_torch.training.step import (
     local_warp,
+    loss_choices,
     make_eval_step,
     make_train_step,
     spatial_fallback,
+    tie_noise_generator,
 )
 
 STEPS_PER_EPOCH = 100  # the learning rate stays at its first value
@@ -175,13 +192,61 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b) if b else abs(a - b)
 
 
+def _peak_reset(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_bytes(device) -> int | None:
+    """The card's peak allocation since `_peak_reset`, after its queue
+    drains (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device)
+
+
+def first_choices(cfg: Config, state, batch, mesh, device) -> Dict[int, torch.Tensor]:
+    """`loss_choices` of the first train step (its noise generator) on
+    this rank's piece of `batch` (the global batch without a mesh)."""
+    piece = batch if mesh is None else shard_batch(mesh, batch)
+    return loss_choices(state.model, cfg, piece,
+                        tie_noise_generator(state.seed, state.step, None, device),
+                        mesh, device)
+
+
+def _gathered_choices(mesh, choices: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+    """Every rank's choices stitched into the global batch's (items over
+    data, rows over spatial), on every rank."""
+    out = {}
+    for scale, mine in choices.items():
+        parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+        dist.all_gather(parts, mine.contiguous())
+        out[scale] = torch.cat([torch.cat(parts[d * mesh.spatial:(d + 1) * mesh.spatial], 1)
+                                for d in range(mesh.data)], 0)
+    return out
+
+
+def choice_flips(cfg: Config, mesh_choices, one_choices) -> dict:
+    n = len(cfg.source_frame_ids) if cfg.use_automasking else 0
+    return {"minimum": {s: int((mesh_choices[s] != c).sum()) for s, c in one_choices.items()},
+            "automask": {s: int(((mesh_choices[s] < n) != (c < n)).sum())
+                         for s, c in one_choices.items()},
+            "pixels": int(next(iter(one_choices.values())).numel())}
+
+
 def _reference(cfg: Config, args, batches, mesh_report: dict,
-               mesh_grads: Dict[str, torch.Tensor], mesh_model, device,
-               model):
+               mesh_grads: Dict[str, torch.Tensor], mesh_sd, device,
+               model, mesh_choices):
     """The same steps on one device from `model` (a copy of the initial
     model) on the global batches -> (the one device's gradients after the
-    first step by module, the differences from the mesh's run)."""
+    first step by module, the differences from the mesh's run, whose
+    trained state `mesh_sd` and gradients lie on the host)."""
     state = create_state(cfg, model, steps_per_epoch=STEPS_PER_EPOCH)
+    flips = choice_flips(cfg, mesh_choices, first_choices(cfg, state, batches[0],
+                                                            None, device))
+    _peak_reset(device)
     # eager, as the mesh steps run (a capture would add its memory pool in
     # a process that shares the card with the other ranks)
     step = make_train_step(model, cfg, device=device, graph=False)
@@ -189,10 +254,11 @@ def _reference(cfg: Config, args, batches, mesh_report: dict,
     for i in range(args.steps):
         losses.append(float(step(state, batches[i])["loss"]))
         if i == 0:
-            grads = module_grads(model)
-    mesh_sd, ref_sd = mesh_model.state_dict(), model.state_dict()
-    params = max(float((p.detach() - ref_sd[n]).abs().max())
-                 for n, p in mesh_model.named_parameters())
+            grads = host_grads(model)
+    peak = _peak_bytes(device)
+    ref_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    params = max(float((mesh_sd[n] - ref_sd[n]).abs().max())
+                 for n, _ in model.named_parameters())
     stats = max(float((v - ref_sd[k]).abs().max()) for k, v in mesh_sd.items()
                 if "running" in k)
     # the eval step from the mesh's trained state: only the step differs
@@ -210,7 +276,14 @@ def _reference(cfg: Config, args, batches, mesh_report: dict,
         "eval": ev,
         "eval_rel": {k: _rel(mesh_ev[k], v) for k, v in ev.items()
                      if k != "warp_span"},
+        "peak_bytes": peak,
+        "choice_flips": flips,
     }
+
+
+def host_grads(model) -> Dict[str, torch.Tensor]:
+    """`module_grads` on the host, so no copy of them holds card memory."""
+    return {m: g.cpu() for m, g in module_grads(model).items()}
 
 
 def run_rank(args) -> None:
@@ -226,25 +299,35 @@ def run_rank(args) -> None:
     state = _fresh_state(cfg, device, args.f64)
     model = state.model
     replicate(mesh, state)
-    initial = copy.deepcopy(model) if args.reference and mesh.rank == 0 else None
+    initial = copy.deepcopy(model).cpu() if args.reference and mesh.rank == 0 else None
     batches = host_batches(cfg, args.steps + 1, dtype)
     train_step = make_train_step(model, cfg, mesh=mesh)
     eval_step = make_eval_step(model, cfg, mesh=mesh)
+    choices = _gathered_choices(mesh, first_choices(cfg, state, batches[0], mesh, device)) \
+        if args.reference else None
+    level_rows: List[int] = []
+
+    def record_rows(module, inputs, features):
+        if not level_rows:
+            level_rows.extend([inputs[0].shape[2]] + [f.shape[2] for f in features])
+
+    hook = model.encoder.register_forward_hook(record_rows)
 
     for fn in KERNELS.values():
         fn.launches = 0
     local_warp.calls = spatial_fallback.calls = 0
+    _peak_reset(device)
     t0 = time.perf_counter()
     losses, grads, train_metrics = [], None, {}
     for i in range(args.steps):
         train_metrics = _floats(train_step(state, shard_batch(mesh, batches[i])))
         losses.append(train_metrics["loss"])
         if i == 0:
-            grads = module_grads(model)
+            grads = host_grads(model)
     ev = _floats(eval_step(state, shard_batch(mesh, batches[-1]), 0))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    peak = _peak_bytes(device)
     seconds = time.perf_counter() - t0
+    hook.remove()
     report = {
         "rank": mesh.rank, "mesh": mesh.shape, "device": str(device),
         "backend": dist.get_backend() if dist.is_initialized() else None,
@@ -259,7 +342,7 @@ def run_rank(args) -> None:
                                     for p in model.parameters())),
         "launches": {name: fn.launches for name, fn in KERNELS.items()},
         "slab_warps": local_warp.calls, "fallbacks": spatial_fallback.calls,
-        "seconds": seconds,
+        "seconds": seconds, "peak_bytes": peak, "level_rows": level_rows,
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -269,9 +352,16 @@ def run_rank(args) -> None:
         dist.barrier()
         dist.destroy_process_group()
     if args.reference and mesh.rank == 0:
+        # the reference's peak starts, as the ranks' did, from its model alone
+        mesh_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del state, model, train_step, eval_step
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         one_device, report["reference"] = _reference(
-            cfg, args, batches, report, grads, model, device, initial)
+            cfg, args, batches, report, grads, mesh_sd, device, initial.to(device),
+            choices)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         report["reference_seconds"] = time.perf_counter() - t0

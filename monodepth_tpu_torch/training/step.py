@@ -46,12 +46,21 @@ steps compute what the single-device step computes on the global batch:
   the ranks, the tie-break noise is drawn for the global batch and sliced
   to this rank's items, the loss is the mean over ranks and the depth
   metrics are computed on the gathered depths;
-- spatial axis: the network stays replicated over the spatial group (it
-  gathers its frames by rows first); each rank warps its own rows of the
-  sources with its rows of the grids on a halo-extended slab
-  (`_spatial_sampler`, kernel K3), and the warped rows are gathered
-  back, so the loss is replicated and every rank ends with the same
-  gradient. Splitting the network itself by rows is later work.
+- spatial axis: each rank holds its rows of its data row's frames and
+  runs the step on them from the first op to the loss (`parallel.rows`,
+  under `row_sharding`): the colour jitter's gray mean, every convolution,
+  pool, pad and resize on halo-exchanged row pieces while the level rule
+  holds (the deeper levels gather and run whole), batch norm summed over
+  the whole mesh, the pose decoders' averages over the spatial group, the
+  upsampled disparities, depths and grids of the rank's rows in the whole
+  image's coordinates, each warp on a halo slab of the rank's sources
+  (`_spatial_sampler`, kernel K3; the exact `spatial_fallback` when a tap
+  leaves the slab or the kernels are off), and SSIM and the smoothness
+  with halo rows. Each rank's loss is its part of its data row's loss;
+  the gradients are summed over the spatial ranks and averaged over the
+  data ranks (`parallel.mesh.average_gradients`), so every rank ends
+  with the same update. Only the metrics gather rows: the depths, for the
+  ground-truth metrics.
 """
 
 from __future__ import annotations
@@ -70,8 +79,9 @@ from monodepth_tpu_torch.data.augment import decode_frames
 from monodepth_tpu_torch.losses.metrics import training_depth_metric
 from monodepth_tpu_torch.losses.reprojection import monodepth_loss, tie_noise
 from monodepth_tpu_torch.models.monodepth import Monodepth
-from monodepth_tpu_torch.models.resnet import sync_batch_stats
+from monodepth_tpu_torch.models.resnet import BatchNorm2d, sync_batch_stats
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
+    SLAB,
     WarpSample,
     WarpSampleShifted,
     dy_span,
@@ -83,14 +93,13 @@ from monodepth_tpu_torch.ops.geometry import (
     transform_from_parameters,
     warp_grid,
 )
-from monodepth_tpu_torch.ops.sampling import grid_sample, pyramid, resize_bilinear
+from monodepth_tpu_torch.ops.sampling import downsample_2x_avg, grid_sample, resize_bilinear
+from monodepth_tpu_torch.parallel import rows
 from monodepth_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather_cat,
     average_gradients,
     exchange_halo,
-    gather_rows,
-    split_rows,
 )
 from monodepth_tpu_torch.training.graphs import GraphedStep
 from monodepth_tpu_torch.training.state import TrainState, resolve_device
@@ -111,8 +120,8 @@ def _to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Tens
 
 
 def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
-                   *, train: bool = False, sampler: Sampler | None = None,
-                   own_frames: Tensor | None = None) -> Dict[str, Any]:
+                   *, train: bool = False,
+                   sampler: Sampler | None = None) -> Dict[str, Any]:
     """Forward the model and synthesize every (scale, source) warp.
 
     batch: frames uint8 [B, F, H, W, 3], jitter [B, 5], K and inv_K
@@ -121,9 +130,10 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
     the caller sets the model's mode and the autograd context. `sampler`
     overrides the warp (default under `cfg.use_pallas`: `WarpSample.apply`
     with `train`, `warp_sample` without; else `grid_sample`). The sources
-    carry no gradient. With `own_frames` (this rank's rows of the frames,
-    under a spatial mesh) the sampler warps the sources decoded from them
-    instead of the full-height ones. Returns disps / warped / sources /
+    carry no gradient. Under `parallel.rows.row_sharding` the frames are
+    this rank's rows, and so is everything that comes out: the grids in
+    the whole image's coordinates, each warp by `sampler` from the rank's
+    source rows. Returns disps / warped / sources /
     target_pyr / depth0 / warp_span, all f32 (or the inputs' wider type)
     whatever the network's precision."""
     device = batch["frames"].device
@@ -136,14 +146,13 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
     source_ids = list(cfg.source_frame_ids)
     target = color[:, 0].to(f32)
 
-    def source_images(frames):  # contiguous once: each feeds a warp per scale
-        return [frames[:, cfg.frame_ids.index(fid)].to(f32).contiguous()
-                for fid in source_ids]
-
-    sources = source_images(color)
-    # decoded as decode_frames decodes `color`
-    warp_sources = sources if own_frames is None \
-        else source_images(own_frames.to(color.dtype) / 255.0)
+    # contiguous once: each feeds a warp per scale
+    sources = [color[:, cfg.frame_ids.index(fid)].to(f32).contiguous()
+               for fid in source_ids]
+    # a spatial mesh's row piece: its first row in the whole image
+    pieces = rows.current()
+    row0 = 0 if pieces is None else pieces.row0(target.shape[1])
+    full_height = None if pieces is None else H
     K = batch["K"].to(f32)
     inv_K = batch["inv_K"].to(f32)
     disps = {s: d.to(f32) for s, d in disps.items()}
@@ -165,29 +174,34 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
                                     preserve_rng_state=False)
     telemetry = cfg.use_pallas or cfg.warp_telemetry
 
+    # on row pieces a coarse scale's level may run whole (`parallel.rows`'
+    # level rule): its upsampled disparity is then split to the rank's rows
+    levels = rows.resnet_levels()
     warped: Dict[int, list] = {}
     depth0 = None
     warp_span = None
     for scale in cfg.scales:
-        disp_full = resize_bilinear(disps[scale], H, W, align_corners=False)
+        with rows.level(levels[scale]):
+            disp_full = resize_bilinear(disps[scale], H, W, align_corners=False)
+        disp_full = rows.relevel(disp_full, levels[scale], True, dim=1)
         _, depth = disparity_to_depth(disp_full, cfg.min_depth, cfg.max_depth)
         if scale == 0:
             depth0 = depth
         warps = []
-        for fid, src in zip(source_ids, warp_sources):
+        for fid, src in zip(source_ids, sources):
             if fid == "s":
                 T = batch["stereo_T"].to(f32)
             elif cfg.pose_type == "posecnn":
                 aa, t = poses[fid]
-                mean_inv_depth = (1.0 / depth).mean(dim=(1, 2, 3))
+                mean_inv_depth = rows.spatial_mean(1.0 / depth, (1, 2, 3))
                 T = transform_from_parameters(
                     aa, t * mean_inv_depth[:, None],
                     invert=model.invert_for_frame(fid))
             else:
                 T = transforms[fid]
-            grid = warp_grid(depth, inv_K, K, T)
+            grid = warp_grid(depth, inv_K, K, T, row0, full_height)
             if telemetry and scale == 0:
-                span = dy_span(grid.detach())
+                span = _warp_span(grid.detach(), row0, full_height)
                 warp_span = span if warp_span is None \
                     else torch.maximum(warp_span, span)
             warps.append(sampler(src, grid))
@@ -197,10 +211,29 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
         "disps": disps,
         "warped": warped,
         "sources": sources,
-        "target_pyr": pyramid(target, max(cfg.scales) + 1),
+        "target_pyr": _target_pyramid(target, max(cfg.scales) + 1, levels),
         "depth0": depth0,
         "warp_span": warp_span,
     }
+
+
+def _warp_span(grid: Tensor, row0: int, full_height: int | None) -> Tensor:
+    """`dy_span` of this rank's grid rows; of the spatial group's gathered
+    rows where a rank's piece is no whole number of its 8-row slabs."""
+    pieces = rows.current()
+    if pieces is None or grid.shape[1] % SLAB == 0:
+        return dy_span(grid, row0, full_height)
+    return dy_span(all_gather_cat(grid, pieces.mesh.spatial_group, 1))
+
+
+def _target_pyramid(target: Tensor, num_scales: int, levels) -> list:
+    """`pyramid(target, num_scales)`; on row pieces a level that runs whole
+    (`levels`, the depth network's) is made from the gathered level above."""
+    out = [target]
+    for s in range(1, num_scales):
+        out.append(downsample_2x_avg(rows.relevel(out[-1], levels[s - 1], levels[s],
+                                                  dim=1)))
+    return out
 
 
 def slab_holds_taps(grid_rows: Tensor, row0: int, slab_rows: int,
@@ -287,46 +320,50 @@ def _spatial_sampler(cfg: Config, mesh: Mesh):
 
 def _spatial_warp(cfg: Config, mesh: Mesh | None, sampler: Sampler | None,
                   train: bool) -> Sampler | None:
-    """The sampler of a spatial mesh's steps -> sample(own source rows,
-    full-height grid): this rank's grid rows (`split_rows`), its warp
-    (`_spatial_sampler`), the rows gathered back (`gather_rows`). None
-    where the warps run on full-height sources: no spatial axis, the
-    kernels off, or a `sampler` given."""
-    if mesh is None or mesh.spatial == 1 or not cfg.use_pallas or sampler is not None:
-        return None
-    spatial = _spatial_sampler(cfg, mesh)
-
-    def sample(own_rows: Tensor, grid: Tensor) -> Tensor:
-        return gather_rows(spatial(own_rows, split_rows(grid, mesh), train), mesh)
-
-    return sample
-
-
-def _gather_frames(batch: Dict[str, Tensor], mesh: Mesh | None):
-    """(batch with the spatial group's frames gathered by rows, this rank's
-    own frames or None)."""
+    """The sampler of a spatial mesh's steps -> sample(source rows, grid
+    rows), both this rank's: K3 on the rank's halo slab
+    (`_spatial_sampler`) with the kernels on, the exact `spatial_fallback`
+    without. None without a spatial axis. Raises when the frames' rows do
+    not split into pieces of 3 (the stem's halo): the loss runs on the
+    rank's rows at full resolution."""
     if mesh is None or mesh.spatial == 1:
-        return batch, None
-    own = batch["frames"]
-    return {**batch, "frames": all_gather_cat(own, mesh.spatial_group, 2)}, own
+        return None
+    if sampler is not None:
+        raise ValueError("a spatial mesh warps its rows with K3 or the exact "
+                         "fallback: pass no sampler")
+    with rows.row_sharding(mesh, cfg.height):
+        if not rows.resnet_levels()[0]:
+            raise ValueError(f"height {cfg.height} does not split into row pieces "
+                             f"of >= 3 over spatial={mesh.spatial}")
+    if not cfg.use_pallas:
+        return lambda own_rows, grid_rows: spatial_fallback(own_rows, grid_rows, mesh)
+    spatial = _spatial_sampler(cfg, mesh)
+    return lambda own_rows, grid_rows: spatial(own_rows, grid_rows, train)
+
+
+def _stats_group(mesh: Mesh | None):
+    """The process group batch norm sums its statistics over: the data
+    group, or the whole mesh when it splits rows."""
+    if mesh is None or mesh.spatial == 1:
+        return None if mesh is None else mesh.data_group
+    return dist.group.WORLD
 
 
 def _rank_noise(noise, out: Dict[str, Any], cfg: Config, mesh: Mesh | None):
-    """This rank's items of the global batch's tie-break noise. A
+    """This rank's items and rows of the global batch's tie-break noise. A
     generator draws each scale's [B_global, H, W, n_sources] noise in the
     order and type the loss would, so the ranks together use the single
     device's noise."""
-    if mesh is None or mesh.data == 1 or not cfg.use_automasking:
+    if mesh is None or mesh.size == 1 or not cfg.use_automasking:
         return noise
     target = out["target_pyr"][0]
-    b = target.shape[0]
+    b, h = target.shape[:2]
     if isinstance(noise, torch.Generator):
         shape = (b * mesh.data, cfg.height, cfg.width, len(cfg.source_frame_ids))
-        noise = {s: 1e-5 * torch.randn(shape, generator=noise, dtype=target.dtype,
-                                       device=target.device)
+        noise = {s: tie_noise(noise, shape, target.dtype, target.device)
                  for s in cfg.scales}
-    first = mesh.data_index * b
-    return {s: v[first:first + b] for s, v in noise.items()}
+    first, row0 = mesh.data_index * b, mesh.spatial_index * h
+    return {s: v[first:first + b, row0:row0 + h] for s, v in noise.items()}
 
 
 def _step_device(device, mesh: Mesh | None) -> torch.device:
@@ -393,12 +430,45 @@ def _train_bound(model: Monodepth, state: TrainState) -> list:
             + [group["lr"] for group in optimizer.param_groups])
 
 
-def _loss(out: Dict[str, Any], noise, cfg: Config) -> Tensor:
-    loss, _ = monodepth_loss(
-        out["disps"], out["warped"], out["sources"], out["target_pyr"],
-        noise, scales=cfg.scales, disp_smoothness=cfg.disp_smoothness,
-        use_automasking=cfg.use_automasking)
-    return loss
+def _forward(model: Monodepth, batch: Dict[str, Tensor], noise, cfg: Config,
+             mesh: Mesh | None, train: bool, sampler: Sampler | None,
+             choices: bool = False):
+    """A step's forward and loss on this rank's piece -> (apply_and_warp's
+    outputs, loss, the loss's terms): under a mesh batch norm sums over
+    its ranks, and a spatial mesh runs on this rank's rows
+    (`parallel.rows.row_sharding`); the loss is this rank's part."""
+    with sync_batch_stats(model, _stats_group(mesh)), \
+            rows.row_sharding(mesh, cfg.height):
+        out = apply_and_warp(model, batch, cfg, train=train, sampler=sampler)
+        loss, aux = monodepth_loss(
+            out["disps"], out["warped"], out["sources"], out["target_pyr"],
+            _rank_noise(noise, out, cfg, mesh), scales=cfg.scales,
+            disp_smoothness=cfg.disp_smoothness,
+            use_automasking=cfg.use_automasking, choices=choices)
+    return out, loss, aux
+
+
+@torch.no_grad()
+def loss_choices(model: Monodepth, cfg: Config, batch: Mapping[str, Any], noise,
+                 mesh: Mesh | None = None, device=None) -> Dict[int, Tensor]:
+    """{scale: [b, h, W] int64}: the channel each pixel's minimum takes
+    (identity channels first) in a train step's forward from the model's
+    state on this rank's piece (`noise` as the train step takes it), the
+    running statistics left as they are. `parallel.run_steps --reference`
+    counts where a mesh's choices differ from one device's."""
+    device = _step_device(device, mesh)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    model.train()
+    for m in norms:
+        m.keep_stats = True
+    try:
+        _, _, aux = _forward(model, _to_device(batch, device), noise, cfg, mesh,
+                             True, _spatial_warp(cfg, mesh, None, train=True),
+                             choices=True)
+    finally:
+        for m in norms:
+            m.keep_stats = False
+    return {s: aux[f"choice/{s}"] for s in cfg.scales}
 
 
 @torch.no_grad()
@@ -406,11 +476,12 @@ def _metrics(loss: Tensor, out: Dict[str, Any], batch: Dict[str, Tensor],
              with_gt: bool = True, mesh: Mesh | None = None):
     """loss, warp_span (when computed) and, with `with_gt` and `depth_gt`
     in the batch, the 7 depth metrics; all detached. Under a mesh: the
-    loss is the mean over ranks, warp_span the max over ranks (at least
-    the single device's value, which means each source's span over the
-    global batch), and the depth metrics are computed on the depths and
-    ground truth gathered over the data group (their scale is one median
-    over the batch)."""
+    loss is the sum of the ranks' parts over the data ranks (the mean of
+    the data rows' losses), warp_span the max over ranks (at least the
+    single device's value, which means each source's span over the global
+    batch), and the depth metrics are computed on the depths gathered by
+    rows over the spatial group and, with the ground truth, over the data
+    group (their scale is one median over the batch)."""
     metrics = {"loss": loss.detach()}
     if out["warp_span"] is not None:
         metrics["warp_span"] = out["warp_span"]
@@ -418,10 +489,12 @@ def _metrics(loss: Tensor, out: Dict[str, Any], batch: Dict[str, Tensor],
     if mesh is not None and mesh.size > 1:
         metrics["loss"] = metrics["loss"].clone()
         dist.all_reduce(metrics["loss"])
-        metrics["loss"] /= mesh.size
+        metrics["loss"] /= mesh.data
         if "warp_span" in metrics:
             metrics["warp_span"] = metrics["warp_span"].clone()
             dist.all_reduce(metrics["warp_span"], op=dist.ReduceOp.MAX)
+        if with_gt and gt is not None and mesh.spatial > 1:
+            depth = all_gather_cat(depth, mesh.spatial_group, 1)
         if with_gt and gt is not None and mesh.data > 1:
             depth = all_gather_cat(depth, mesh.data_group, 0)
             gt = all_gather_cat(gt, mesh.data_group, 0)
@@ -442,17 +515,12 @@ def _train_runner(model: Monodepth, cfg: Config, device: torch.device,
     """run(state, batch on the device, noise, lr=None) -> metrics: one
     train step's body (the lr tensor, when given, replaces schedule(step):
     `TrainState.apply_gradients`)."""
-    warp = _spatial_warp(cfg, mesh, sampler, train=True)
-    data_group = mesh.data_group if mesh is not None else None
+    sampler = _spatial_warp(cfg, mesh, sampler, train=True) or sampler
 
     def run(state: TrainState, batch: Dict[str, Tensor], noise, lr=None):
         model.train()
-        with record_function("train_step/forward"), \
-                sync_batch_stats(model, data_group):
-            batch, own_frames = _gather_frames(batch, mesh)
-            out = apply_and_warp(model, batch, cfg, train=True,
-                                 sampler=warp or sampler, own_frames=own_frames)
-            loss = _loss(out, _rank_noise(noise, out, cfg, mesh), cfg)
+        with record_function("train_step/forward"):
+            out, loss, _ = _forward(model, batch, noise, cfg, mesh, True, sampler)
         with record_function("train_step/backward"):
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -609,14 +677,11 @@ def make_eval_step(model: Monodepth, cfg: Config, device=None,
     the card. `graph` as `make_train_step`'s; the graph reads `state` for
     its noise keys only. With `mesh`, as `make_train_step`."""
     device = _step_device(device, mesh)
-    warp = _spatial_warp(cfg, mesh, sampler, train=False)
+    sampler = _spatial_warp(cfg, mesh, sampler, train=False) or sampler
 
     def run(batch: Dict[str, Tensor], noise):
         model.eval()
-        batch, own_frames = _gather_frames(batch, mesh)
-        out = apply_and_warp(model, batch, cfg, train=False,
-                             sampler=warp or sampler, own_frames=own_frames)
-        loss = _loss(out, _rank_noise(noise, out, cfg, mesh), cfg)
+        out, loss, _ = _forward(model, batch, noise, cfg, mesh, False, sampler)
         return _metrics(loss, out, batch, True, mesh)
 
     if _graphed(graph, device, mesh):

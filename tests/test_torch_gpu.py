@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel (the warp sampler's, its
 backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
 against its plain PyTorch version, the launches of the eval and train
-steps (with --remat too), `prefetch_to_device`'s batches on the card, and
-the steps captured as CUDA graphs against the eager steps. Marked `gpu`;
+steps (with --remat too), `prefetch_to_device`'s batches on the card,
+synced batch norm's own backward against autograd's, and the steps
+captured as CUDA graphs against the eager steps. Marked `gpu`;
 each test skips without a CUDA device. This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
 
@@ -225,6 +226,41 @@ def test_warp_kernel_rejects_what_it_cannot_take(cuda):
             fn(img.double(), grid.double())
         with pytest.raises(ValueError, match="contiguous"):
             fn(img.transpose(1, 2).contiguous().transpose(1, 2), grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_synced_norm_is_autograd_bit_for_bit_on_card(cuda, dtype):
+    """Synced batch norm's own backward gives the bits of plain autograd
+    through the same ops on the card too, at a layer1 shape of the
+    640x192 b12 step (a one-rank gloo group; tests/test_torch_rows.py
+    checks three CPU ranks)."""
+    import torch.distributed as dist
+    from torch_rows_worker import synced_norm_by_autograd
+
+    from monodepth_tpu_torch.models.resnet import BatchNorm2d
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        x = (torch.randn(12, 64, 48, 160, device=cuda, generator=gen) * 0.7 + 3.0).to(dtype)
+        cot = torch.randn(x.shape, device=cuda, generator=gen).to(dtype)
+        bn = BatchNorm2d(64).to(cuda).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(64, device=cuda, generator=gen) + 0.5)
+            bn.bias.copy_(torch.rand(64, device=cuda, generator=gen) - 0.5)
+        bn.process_group = dist.group.WORLD
+        got = {}
+        for how, fn in (("module", bn), ("autograd", lambda t: synced_norm_by_autograd(bn, t))):
+            t = x.clone().requires_grad_(True)
+            bn.zero_grad(set_to_none=True)
+            y = fn(t)
+            (y.float() * cot.float()).sum().backward()
+            got[how] = [y, t.grad, bn.weight.grad, bn.bias.grad]
+        for mine, plain in zip(got["module"], got["autograd"]):
+            assert torch.equal(mine, plain)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.gpu

@@ -1,7 +1,13 @@
 """The port's train and eval steps under a process mesh against the
 single-process step on the global batch, in float64 on the CPU (gloo):
-{data: 2}, {spatial: 2} (warps on halo slabs, K3's plain version) and
-{data: 2, spatial: 2} with no halo (every warp takes the exact fallback).
+{data: 2}, {spatial: 2} (warps on halo slabs, K3's plain version), {data:
+2, spatial: 2} with no halo (every warp takes the exact fallback), and
+{spatial: 3} at 96x64, batch 2, halo 16, where every encoder level runs
+on row pieces (32/16/8/4/2/1 rows a rank), and {spatial: 8} at 32 rows,
+batch 2, where layer2 to layer4 (4, 2 and 1 rows) run whole, so does the
+coarsest scale's loss, and the decoder splits back at 8 rows. On a
+spatial mesh each rank runs the network and the loss on its rows; at 32
+rows on 2 ranks layer4 (1 row) runs whole on every rank.
 Each run is `python -m monodepth_tpu_torch.parallel.run_steps --spawn
 --reference`: its ranks run 2 train steps and 1 eval step from one seeded
 init on `make_planar_scenes` batches, and rank 0 then runs the same steps
@@ -28,7 +34,11 @@ CONFIG = ["--height", "32", "--width", "128", "--batch", "4", "--precision", "f3
           "--train_gt_metrics", "true"]
 MESHES = {"data2": (["--data", "2", "--spatial", "1"], []),
           "spatial2": (["--data", "1", "--spatial", "2"], []),
-          "data2_spatial2": (["--data", "2", "--spatial", "2"], ["--spatial_halo", "0"])}
+          "data2_spatial2": (["--data", "2", "--spatial", "2"], ["--spatial_halo", "0"]),
+          "spatial3": (["--data", "1", "--spatial", "3"],
+                       ["--height", "96", "--width", "64", "--batch", "2",
+                        "--spatial_halo", "16"]),
+          "spatial8": (["--data", "1", "--spatial", "8"], ["--batch", "2"])}
 
 
 def _cmd(mesh, out, timeout, extra=()):
@@ -40,8 +50,8 @@ def _cmd(mesh, out, timeout, extra=()):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{mesh: [report of each rank]}; the three runs go at once, each rank
-    at one intra-op thread. Their 8 ranks take ~50 s on an idle 8-core
+    """{mesh: [report of each rank]}; the five runs go at once, each rank
+    at one intra-op thread. Their 19 ranks take ~60 s on an idle 8-core
     host and over 200 s beside five other test workers, so the deadline,
     a guard against a hung rank, is 600 s."""
     tmp = tmp_path_factory.mktemp("steps")
@@ -104,12 +114,39 @@ def test_eval_step_matches_single_device(runs, mesh):
 def test_warp_paths(runs, mesh):
     """On the CPU no kernel launches. {data: 2} warps whole images; the
     spatial meshes warp every one of the 24 warps (8 per step, 3 steps) of
-    each rank on its slab ({spatial: 2}, halo 16) or, with no halo, in the
-    fallback ({data: 2, spatial: 2})."""
-    expected = {"data2": (0, 0), "spatial2": (24, 0), "data2_spatial2": (0, 24)}[mesh]
+    each rank on its slab ({spatial: 2}, {spatial: 3} and {spatial: 8},
+    halo 16, or all of a 4-row piece) or, with no halo, in the fallback
+    ({data: 2, spatial: 2})."""
+    expected = {"data2": (0, 0), "spatial2": (24, 0), "data2_spatial2": (0, 24),
+                "spatial3": (24, 0), "spatial8": (24, 0)}[mesh]
     for r in runs[mesh]:
         assert set(r["launches"].values()) == {0}
         assert (r["slab_warps"], r["fallbacks"]) == expected
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_network_runs_on_rows(runs, mesh):
+    """Each rank's depth encoder ran on its rows: the input and the five
+    levels hold H/n, H/2n, ... rows while the level rule splits them, and
+    a level too short to split (layer4 at 32 rows on 2 ranks: 1 row) runs
+    whole. Nothing gathers the frames."""
+    expected = {"data2": [32, 16, 8, 4, 2, 1], "spatial2": [16, 8, 4, 2, 1, 1],
+                "data2_spatial2": [16, 8, 4, 2, 1, 1],
+                "spatial3": [32, 16, 8, 4, 2, 1], "spatial8": [4, 2, 1, 4, 2, 1]}[mesh]
+    for r in runs[mesh]:
+        assert r["level_rows"] == expected, (r["rank"], r["level_rows"])
+        assert r["peak_bytes"] is None  # measured on a card only
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_no_choice_flips_in_f64(runs, mesh):
+    """In f64 no pixel's per-pixel minimum (or automask choice) in the first
+    train step's forward differs between the mesh and one device: the f32
+    gap's flips (ROADMAP.md section 3) are rounding."""
+    flips = runs[mesh][0]["reference"]["choice_flips"]
+    assert flips["pixels"] == {"spatial3": 2 * 96 * 64, "spatial8": 2 * 32 * 128}.get(
+        mesh, 4 * 32 * 128)
+    assert set(flips["minimum"].values()) == set(flips["automask"].values()) == {0}
 
 
 def test_module_grads_cover_every_parameter():
