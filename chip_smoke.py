@@ -176,7 +176,9 @@ Phases, each fatal on failure:
 11. the Trainer and both CLIs on a 2-rank mesh ({data: 2}) at the headline
    config on phase 8's tree, 2 epochs of 4 train and 2 validation steps as
    phase 9 runs them, cuDNN deterministic, under `build/phase11/`: over
-   NCCL with 2 or more cards, else over gloo with both ranks on one card:
+   NCCL with 2 or more cards (its steps captured, and an eager run beside:
+   losses equal, img/s of both), else over gloo with both ranks on one
+   card (eager):
    a. the Trainer in 2 ranks (`run_steps.spawn`, `--eigen_every 1`), every
       count set to 0 just before `train()`: on every rank K1 and K1-bwd 8
       per train step, K2 8 per validation step, the others 0, no plain
@@ -230,7 +232,33 @@ Phases, each fatal on failure:
    f. a captured train step refuses another state; a restore under a
       capture captures again and equals the uninterrupted run (max |diff|
       0);
-14. the `kernels` JSON line, then the last line
+14. the one-dispatch mesh steps, with 2 or more cards (NCCL puts one rank
+   on each card; with one card the phase prints that it did not run, and
+   checks that `graph=True` on a gloo mesh raises): a `{data: n}` mesh over
+   all n cards, one rank a card, at the headline config with 12 items a
+   rank, from one replicated state, cuDNN deterministic, the counts read
+   around each call:
+   a. 3 captured train calls (warm-up, capture and replay, replay) against
+      3 eager mesh steps from a deep copy, then `--steps_per_call 2` (3
+      calls against 6 eager steps), then 3 eval calls with sparse ground
+      truth (the depths and GT gathered inside the graph) against eager,
+      and the captured infer against eager: on every rank max |diff| 0
+      over losses, metrics, parameters, buffers and Adam state, K1 and
+      K1-bwd 8 a train step and K2 8 an eval step in every call, replays
+      included, and no plain version called;
+   b. `torch.profiler` over one train replay on every rank: NCCL kernels
+      inside it, no device-to-host copy, and no synchronize call between
+      the call's start and its end (the graph launch seen there);
+   c. each rank's peak memory with the four captures held;
+   d. each rank's host ms (median of 10), device-busy ms (torch.profiler
+      over 3 calls) and idle share of the captured and the eager mesh
+      train step at 12 and at 3 items a rank (cuDNN as in phase 5a);
+   e. `run_steps` f32 on the same mesh, captured, with --reference: phase
+      7's f32 bounds against one card (2e-6 in the first step, 1e-5 after
+      it, 1e-6 in the eval step);
+   and phase 11 runs its mesh Trainer captured over NCCL, beside an eager
+   one (losses equal, img/s of both);
+15. the `kernels` JSON line, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
    K3's launches there are those of phase 7's last spatial mesh, the
    `separate` wiring in bf16 (rank 0); "launches_on" says which. K1,
@@ -241,15 +269,19 @@ Phases, each fatal on failure:
    mesh Trainer ("launches_mesh_trainer_path"); the warp kernels also
    summed over phase 7's runs on rank 0 ("launches_mesh_steps_path"), and
    K1, K1-bwd and K2 the kernels `torch.profiler` saw in one replay of
-   phase 13c's train graph and 13b's eval graph ("launches_graphs_path").
+   phase 13c's train graph and 13b's eval graph ("launches_graphs_path"),
+   and, with 2 or more cards, those counted in one replay on rank 0 of
+   phase 14's mesh graphs ("launches_mesh_graphs_path").
 
 Every step on one card without a mesh runs as a CUDA graph from its
 second call on (`graph=None`), so phases 5, 8, 9, 10 and 12 drive the
 captured steps; a kernel's launches on a replayed path are counted by the
 graph (`training/graphs.py`: the launches its capture recorded, per
 replay), kernel executions as before, and 13b and 13c hold that count
-against the kernels a profile of one replay shows. The mesh steps (phases
-7 and 11) stay eager.
+against the kernels a profile of one replay shows. On a mesh the steps
+are graphs over NCCL with spatial 1 (phase 14, phase 11 with 2 or more
+cards) and eager over gloo and on a spatial mesh (phase 7; phase 11 on
+one card).
 """
 
 from __future__ import annotations
@@ -1253,7 +1285,8 @@ def _run_steps_finish(torch, run, proc, out):
     """Wait for a `_run_steps_start` run -> (each rank's report, rank 0's
     first-step gradients of the mesh and of one card by module), its
     launches checked: each of the 2 train steps and the eval step warps
-    w times (8, or 12 with "s"). A spatial mesh warps each on a slab (one
+    w times (8, or 12 with "s"); a captured run calls its eval step twice
+    (`eval_calls`: the warm-up, then the capture). A spatial mesh warps each on a slab (one
     K3 launch; at the 64-row halo no fallback), K1 and K2 never, and each
     train-form slab warp's backward is one K1-bwd launch; a data mesh
     warps whole images, K1 and K1-bwd 2w times, K2 w times, K3 never. And
@@ -1281,7 +1314,7 @@ def _run_steps_finish(torch, run, proc, out):
         else:
             ok = (k3 == 0 and (r["slab_warps"], r["fallbacks"]) == (0, 0)
                   and n["warp_sample_fwd_grads"] == n["warp_sample_bwd_grid"] == 2 * w
-                  and n["warp_sample_fwd"] == w)
+                  and n["warp_sample_fwd"] == w * r["eval_calls"])
         check(ok and r["backend"] == backend,
               f"{name} {wiring} {precision} rank {r['rank']} ({r['backend']}): launches "
               f"{n}, slab warps {r['slab_warps']}, fallbacks {r['fallbacks']}")
@@ -2081,10 +2114,13 @@ MESH_EVAL_BATCH = 23  # each of 2 ranks sweeps 23 of the 46 test lines
 def _mesh_trainer_rank(args) -> None:
     """One rank of phase 11's mesh Trainer (a `run_steps.spawn` target):
     joins the group over `backend`, trains `Trainer(Config(**fields))` on
-    its card with cuDNN deterministic, every kernel's count set to 0 just
-    before `train()` and the plain versions counted, and writes
-    out/rank<r>.json: the launches, the plain calls, every train step's
-    loss, and how often it wrote a state, a module export and a record."""
+    its card with cuDNN deterministic (its steps as the Trainer makes
+    them: CUDA graphs over NCCL, eager over gloo; with `eager`, its train
+    and validation steps replaced by `graph=False` ones), every kernel's
+    count set to 0 just before `train()` and the plain versions counted,
+    and writes out/rank<r>.json: the launches, the plain calls, every
+    train step's loss, how often it wrote a state, a module export and a
+    record, and whether its train step was captured."""
     import torch
     import torch.distributed as dist
 
@@ -2095,10 +2131,18 @@ def _mesh_trainer_rank(args) -> None:
     from monodepth_tpu_torch.training import step as step_module
     from monodepth_tpu_torch.training.loop import Trainer
 
-    fields, backend, out = args
+    import gc
+
+    fields, backend, out, eager = args
     init_distributed("cuda", timeout_s=300, backend=backend)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     trainer = Trainer(Config(**fields), device="cuda")
+    graphed = step_module.graph_refusal(trainer.device, trainer.mesh) is None
+    if eager:
+        trainer.train_step = step_module.make_train_step(
+            trainer.model, trainer.cfg, trainer.device, mesh=trainer.mesh, graph=False)
+        trainer.eval_step = step_module.make_eval_step(
+            trainer.model, trainer.cfg, trainer.device, mesh=trainer.mesh, graph=False)
     writes = {"state": 0, "export": 0, "record": 0}
 
     def counting(key, fn):
@@ -2124,9 +2168,12 @@ def _mesh_trainer_rank(args) -> None:
               "launches": {name: fn.launches for name, fn in wrappers.items()},
               "plain_version_calls": plain_calls, "losses": losses, "writes": writes,
               "local_batch": trainer.train_loader.local_batch,
-              "steps": (len(trainer.train_loader), len(trainer.valid_loader))}
+              "steps": (len(trainer.train_loader), len(trainer.valid_loader)),
+              "captured": graphed and not eager}
     with open(os.path.join(out, f"rank{report['rank']}.json"), "w") as f:
         json.dump(report, f)
+    del trainer, losses  # its CUDA graphs (NCCL inside) go before the group
+    gc.collect()
     dist.barrier()
     dist.destroy_process_group()
 
@@ -2191,9 +2238,12 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
     # 11a: 2 epochs straight, the worker
     out = os.path.join(PHASE11, "ranks")
     os.makedirs(out)
-    codes = spawn(_mesh_trainer_rank, 2, (dict(fields, save="mesh"), backend, out), 600)
+    codes = spawn(_mesh_trainer_rank, 2, (dict(fields, save="mesh"), backend, out, False),
+                  600)
     check(codes == [0, 0], f"mesh Trainer rank exit codes {codes}")
     reports = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(2)]
+    check(all(r["captured"] == (backend == "nccl") for r in reports),
+          f"mesh Trainer over {backend}: captured {[r['captured'] for r in reports]}")
     steps, valid = (2 * n for n in reports[0]["steps"])
     expected = {name: 0 for name in kernel_wrappers(ws)}
     expected.update({"warp_sample_fwd_grads": 8 * steps, "warp_sample_bwd_grid": 8 * steps,
@@ -2248,9 +2298,21 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
     f32_out = os.path.join(PHASE11, "ranks_f32")
     os.makedirs(f32_out)
     codes = spawn(_mesh_trainer_rank, 2, (dict(fields, save="mesh_f32", precision="f32",
-                                               eigen_every=0), backend, f32_out), 600)
+                                               eigen_every=0), backend, f32_out, False), 600)
     check(codes == [0, 0], f"f32 mesh Trainer rank exit codes {codes}")
     mesh_f32 = json.load(open(os.path.join(f32_out, "rank0.json")))["losses"]
+    eager_rates = None
+    if backend == "nccl":  # the captured mesh Trainer against an eager one
+        eager_out = os.path.join(PHASE11, "ranks_eager")
+        os.makedirs(eager_out)
+        codes = spawn(_mesh_trainer_rank, 2, (dict(fields, save="mesh_eager", eigen_every=0),
+                                              backend, eager_out, True), 600)
+        check(codes == [0, 0], f"eager mesh Trainer rank exit codes {codes}")
+        eager_losses = json.load(open(os.path.join(eager_out, "rank0.json")))["losses"]
+        eager_rates = [r["train"]["img_per_sec"]
+                       for r in _records(os.path.join(PHASE11, "mesh_eager"))]
+        check(eager_losses == reports[0]["losses"],
+              f"captured mesh Trainer losses {reports[0]['losses']} vs eager {eager_losses}")
 
     def rels(a, b):
         return [abs(x - y) / abs(y) for x, y in zip(a, b)]
@@ -2272,6 +2334,8 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
                     "launches_per_rank": [r["launches"] for r in reports],
                     "writes": [r["writes"] for r in reports],
                     "mesh_train_img_per_s": [r["train"]["img_per_sec"] for r in records],
+                    "mesh_captured": reports[0]["captured"],
+                    "eager_mesh_train_img_per_s": eager_rates,
                     "one_process_train_img_per_s": [r["train"]["img_per_sec"]
                                                     for r in one_process["records"]],
                     "phase9d_one_process_img_per_s": one_process["rates"],
@@ -2944,6 +3008,305 @@ def phase_graphs(torch, ws, root, splits, train_lines, card, step5a_ms, busy5a_m
             "warp_sample_bwd_grid": traced[1]}
 
 
+PHASE14 = os.path.join(HERE, "build", "phase14")
+
+
+def replay_trace(torch, fn) -> dict:
+    """`torch.profiler` over one call of fn() (a replay), inside a
+    "mesh_replay" range that a device synchronize follows: the NCCL
+    kernels the card ran, any device-to-host copy, and the synchronize
+    calls and graph launches the host made inside the range. The check of
+    "no synchronize" stands only if the trace shows the graph launch."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("mesh_replay"):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    span = [e for e in events if e.name == "mesh_replay" and e.device_type != cuda]
+    start, end = span[0].time_range.start, span[0].time_range.end
+    inside = [e.name for e in events if e.device_type != cuda
+              and start <= e.time_range.start <= end]
+    device = [e.name for e in events if e.device_type == cuda and e.name != "mesh_replay"]
+    nccl = [name for name in device if "nccl" in name.lower()]
+    return {"nccl_kernels": sorted(set(nccl)), "nccl_launches": len(nccl),
+            "device_to_host_copies": [n for n in device if "DtoH" in n],
+            "synchronize_calls_in_call": [n for n in inside if "Synchronize" in n],
+            "graph_launches_in_call": sum("cudaGraphLaunch" in n for n in inside),
+            "device_events": len(device)}
+
+
+def _mesh_step_clock(torch, cfg, mesh, host_batches) -> dict:
+    """Host ms (median of 10), device-busy ms (`torch.profiler` over 3
+    calls: the kernels' summed time, and the union of their intervals, as
+    NCCL's stream overlaps the compute's) and idle share of the captured
+    and the eager mesh train step on this rank, each from its own fresh
+    replicated state, both warmed (a captured one's warm-up and capture)
+    first; and each path's peak memory."""
+    import gc
+
+    from monodepth_tpu_torch.parallel.mesh import replicate, shard_batch
+    from monodepth_tpu_torch.training.state import build_model, create_state
+    from monodepth_tpu_torch.training.step import make_train_step
+
+    pieces = [shard_batch(mesh, b) for b in host_batches]
+    out = {}
+    for name, graph in (("captured", None), ("eager", False)):
+        state = replicate(mesh, create_state(cfg, build_model(cfg), steps_per_epoch=100))
+        step = make_train_step(state.model, cfg, mesh=mesh, graph=graph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn = lambda i: step(state, pieces[i % len(pieces)])  # noqa: E731
+        fn(0)
+        fn(1)
+        ms = host_ms(torch, fn)
+        prof = profile_steps(torch, fn, {"nccl": "nccl"}, n=3)
+        busy = prof["device_busy_ms_per_step"]
+        union = prof.get("device_busy_union_ms_per_step")
+        out[name] = {"host_ms": ms, "device_busy_ms": busy,
+                     "idle_share": None if busy is None else 1 - busy / ms,
+                     "device_busy_union_ms": union,
+                     "idle_share_union": None if union is None else 1 - union / ms,
+                     "kernels_per_call": prof.get("kernels_per_step"),
+                     "nccl_device_ms": prof.get("nccl_device_ms_per_step"),
+                     "nccl_launches": prof.get("nccl_launches_per_step"),
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del state, step, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_graphs_rank(out_dir) -> None:
+    """One rank of phase 14 (a `run_steps.spawn` target): a `{data: n}`
+    mesh over every card, NCCL, at the headline config with 12 items a
+    rank; writes out_dir/rank<r>.json (phase 14's docstring says what)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.ops.cuda import warp_sample as ws
+    from monodepth_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+        replicate,
+        shard_batch,
+        warm_collectives,
+    )
+    from monodepth_tpu_torch.parallel.run_steps import host_batches
+    from monodepth_tpu_torch.training import step as step_module
+    from monodepth_tpu_torch.training.state import build_model, create_state
+    from monodepth_tpu_torch.training.step import (
+        make_eval_step,
+        make_infer_step,
+        make_train_multi_step,
+        make_train_step,
+    )
+
+    init_distributed("cuda", timeout_s=300)
+    mesh = make_mesh(0, 1, "cuda")
+    warm_collectives(mesh)
+    n = mesh.data
+    cfg = Config(batch=12 * n).validate()
+    host = host_batches(cfg, 6, np.float32)  # global batches, sparse GT
+    pieces = [shard_batch(mesh, b) for b in host]
+    train_pieces = [{k: v for k, v in p.items() if k != "depth_gt"} for p in pieces]
+    counters = (ws.warp_sample, ws.warp_sample_grads, ws.grid_vjp)
+
+    def counts():
+        torch.cuda.synchronize()
+        return tuple(fn.launches for fn in counters)
+
+    def per_call(fn, calls):
+        """[outputs], [launches (K2, K1, K1-bwd) of each call]."""
+        outs, launches = [], []
+        for c in calls:
+            before = counts()
+            outs.append(fn(c))
+            launches.append(tuple(a - b for a, b in zip(counts(), before)))
+        return outs, launches
+
+    report = {"rank": mesh.rank, "mesh": mesh.shape, "device": str(mesh.device),
+              "backend": dist.get_backend(), "local_batch": cfg.batch // n}
+    plain = [(ws, "warp_sample_reference"), (ws, "warp_sample_grads_reference"),
+             (ws, "grid_vjp_reference"), (step_module, "grid_sample")]
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        state = replicate(mesh, create_state(cfg, build_model(cfg), steps_per_epoch=100))
+        twin = copy.deepcopy(state)
+        graphed = make_train_step(state.model, cfg, mesh=mesh)
+        eager = make_train_step(twin.model, cfg, mesh=mesh, graph=False)
+        torch.cuda.reset_peak_memory_stats()
+        with counted(plain) as plain_calls:
+            got, report["train_launches"] = per_call(lambda b: graphed(state, b),
+                                                     train_pieces[:3])
+            want, report["train_launches_eager"] = per_call(lambda b: eager(twin, b),
+                                                            train_pieces[:3])
+            report["train"] = {"state_max_abs_diff": state_diff(state, twin),
+                               "metrics_max_abs_diff": max(metrics_diff(g, w)
+                                                           for g, w in zip(got, want)),
+                               "losses": [float(m["loss"]) for m in got]}
+            # the trace of one replay, on every rank (its collectives need all)
+            report["trace"] = replay_trace(torch, lambda: graphed(state, train_pieces[3]))
+            eager(twin, train_pieces[3])
+            report["train"]["state_max_abs_diff_after_traced"] = state_diff(state, twin)
+
+            # K = 2: 3 calls (the warm-up, then 2 replays) against 6 eager steps
+            multi = make_train_multi_step(state.model, cfg, mesh=mesh)
+            multi_eager = make_train_multi_step(twin.model, cfg, mesh=mesh, graph=False)
+            pairs = [train_pieces[i:i + 2] for i in (0, 2, 4)]
+            got, report["k2_launches"] = per_call(lambda b: multi(state, b), pairs)
+            want, report["k2_launches_eager"] = per_call(lambda b: multi_eager(twin, b),
+                                                         pairs)
+            report["k2"] = {"state_max_abs_diff": state_diff(state, twin),
+                            "metrics_max_abs_diff": max(metrics_diff(g, w)
+                                                        for g, w in zip(got, want))}
+
+            # eval (GT metrics: the depths and GT gathered over the data group)
+            eval_graphed = make_eval_step(state.model, cfg, mesh=mesh)
+            eval_eager = make_eval_step(state.model, cfg, mesh=mesh, graph=False)
+            got, report["eval_launches"] = per_call(
+                lambda i: eval_graphed(state, pieces[i], i), range(3))
+            want, report["eval_launches_eager"] = per_call(
+                lambda i: eval_eager(state, pieces[i], i), range(3))
+            report["eval"] = {"metrics_max_abs_diff": max(metrics_diff(g, w)
+                                                          for g, w in zip(got, want)),
+                              "keys": sorted(got[0]),
+                              "losses": [float(m["loss"]) for m in got]}
+
+            # the Eigen infer a mesh Trainer captures: no collective
+            infer_graphed = make_infer_step(state.model, cfg)
+            infer_eager = make_infer_step(state.model, cfg, graph=False)
+            images = [p["frames"][:, 0].float() / 255.0 for p in pieces[:3]]
+            report["infer_max_abs_diff"] = max(
+                float((infer_graphed(x) - infer_eager(x)).abs().max()) for x in images)
+        report["plain_version_calls"] = plain_calls
+        torch.cuda.synchronize()
+        report["peak_bytes_four_captures"] = torch.cuda.max_memory_allocated()
+        del state, twin, graphed, eager, multi, multi_eager, eval_graphed, eval_eager
+        del infer_graphed, infer_eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # speed: cuDNN as in phase 5a, 12 and 3 items a rank
+    report["clock"] = {}
+    for b in (12, 3):
+        bcfg = Config(batch=b * n).validate()
+        report["clock"][f"b{b}_a_rank"] = _mesh_step_clock(
+            torch, bcfg, mesh, [{k: v for k, v in h.items() if k != "depth_gt"}
+                                for h in host_batches(bcfg, 3, np.float32)])
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_graphs(torch, ws, card) -> dict | None:
+    """Phase 14: the one-dispatch mesh steps, on 2 or more cards (NCCL puts
+    one rank on each card; on one card the phase prints that it did not
+    run and checks that `graph=True` refuses a gloo mesh). Returns rank
+    0's K2, K1 and K1-bwd launches in one replay of its eval, train and
+    K=2 graphs, or None on one card."""
+    import gc
+    import shutil
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.parallel.mesh import Mesh
+    from monodepth_tpu_torch.parallel.run_steps import spawn
+    from monodepth_tpu_torch.training.state import build_model
+    from monodepth_tpu_torch.training.step import make_train_step
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        cfg = Config(height=64, width=96, batch=2, weight_init=False)
+        model = build_model(cfg)
+        gloo = Mesh(2, 1, 0, torch.device("cuda", 0), backend="gloo")
+        try:
+            make_train_step(model, cfg, mesh=gloo, graph=True)
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise SmokeFailure("graph=True took a gloo mesh")
+        del model
+        log(f"phase 14: did not run: NCCL puts one rank on each card, and this host "
+            f"shows {count} card; graph=True on a gloo mesh raises: {refused}")
+        return None
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE14, ignore_errors=True)
+    os.makedirs(PHASE14)
+    log(f"phase 14: the captured steps on a {{data: {count}}} mesh over NCCL, one card a rank")
+    gc.collect()  # the earlier phases' graphs and tensors: give their memory
+    torch.cuda.empty_cache()  # back to card 0 before its rank starts
+    codes = spawn(_mesh_graphs_rank, count, PHASE14, 900)
+    check(codes == [0] * count, f"phase 14 rank exit codes {codes}")
+    reports = [json.load(open(os.path.join(PHASE14, f"rank{r}.json"))) for r in range(count)]
+    for r in reports:
+        log(json.dumps({"phase": f"14a-c, rank {r['rank']} of {{data: {count}}} over NCCL, "
+                                 "640x192, 12 items a rank, bf16, captured vs graph=False",
+                        **{k: r[k] for k in r if k != "clock"}, "card": card}))
+        log(json.dumps({"phase": f"14d, rank {r['rank']}: host ms (median of 10), "
+                                 "device-busy ms (torch.profiler over 3 calls) and idle "
+                                 "share of the mesh train step",
+                        "clock": r["clock"], "card": card}))
+    for r in reports:
+        who = f"phase 14 rank {r['rank']}"
+        check(r["backend"] == "nccl" and r["local_batch"] == 12, f"{who}: {r['backend']}")
+        for path in ("train", "k2"):
+            diffs = (r[path]["state_max_abs_diff"], r[path]["metrics_max_abs_diff"])
+            check(diffs == (0, 0), f"{who}: captured {path} differs from eager: {diffs}")
+        check(r["train"]["state_max_abs_diff_after_traced"] == 0,
+              f"{who}: the traced replay's state differs from eager")
+        check(r["eval"]["metrics_max_abs_diff"] == 0 and "abs_rel" in r["eval"]["keys"],
+              f"{who}: captured eval differs from eager: {r['eval']}")
+        check(r["infer_max_abs_diff"] == 0, f"{who}: captured infer differs")
+        want = {"train_launches": [[0, 8, 8]] * 3, "train_launches_eager": [[0, 8, 8]] * 3,
+                "k2_launches": [[0, 16, 16]] * 3, "k2_launches_eager": [[0, 16, 16]] * 3,
+                "eval_launches": [[8, 0, 0]] * 3, "eval_launches_eager": [[8, 0, 0]] * 3}
+        got = {k: r[k] for k in want}
+        check(got == want, f"{who}: launches a call {got}, expected {want}")
+        check(not any(r["plain_version_calls"].values()),
+              f"{who}: plain versions called {r['plain_version_calls']}")
+        check(r["train"]["losses"] == reports[0]["train"]["losses"],
+              f"{who}: the ranks' losses differ")
+        trace = r["trace"]
+        check(trace["nccl_launches"] > 0 and not trace["device_to_host_copies"]
+              and not trace["synchronize_calls_in_call"]
+              and trace["graph_launches_in_call"] >= 1,
+              f"{who}: the trace of one replay: {trace}")
+    # the captured f32 mesh against one card, at phase 7's bounds
+    run = (f"data{count}", count, 1, "separate", "f32", "nccl")
+    steps_reports, _ = _run_steps_finish(torch, run, *_run_steps_start(run))
+    ref = steps_reports[0]["reference"]
+    tol = [PHASE7_F32_FIRST_RTOL] + [1e-5] * (len(ref["loss_rel"]) - 1)
+    log(json.dumps({"phase": f"14e, run_steps f32 on {{data: {count}}} over NCCL, captured, "
+                             "against one card (--reference)",
+                    "ranks": [{k: r[k] for k in ("rank", "graphed", "eval_calls", "losses",
+                                                 "train_host_ms", "launches_last_call",
+                                                 "peak_bytes")} for r in steps_reports],
+                    "one_card": {k: ref[k] for k in ("losses", "loss_rel", "eval_rel",
+                                                     "param_max_abs", "choice_flips")},
+                    "loss_rtol": tol, "eval_loss_rtol": PHASE7_F32_EVAL_RTOL, "card": card}))
+    check(all(r["graphed"] and r["eval_calls"] == 2 for r in steps_reports),
+          "run_steps on the NCCL data mesh did not capture")
+    check(all(a <= b for a, b in zip(ref["loss_rel"], tol)),
+          f"captured f32 mesh vs one card: loss rel {ref['loss_rel']} > {tol}")
+    check(ref["eval_rel"]["loss"] <= PHASE7_F32_EVAL_RTOL,
+          f"captured f32 mesh vs one card: eval loss rel {ref['eval_rel']['loss']}")
+    shutil.rmtree(PHASE14, ignore_errors=True)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s; {card}")
+    r0 = reports[0]
+    return {"warp_sample_fwd": r0["eval_launches"][-1][0],
+            "warp_sample_fwd_grads": r0["train_launches"][-1][1],
+            "warp_sample_bwd_grid": r0["train_launches"][-1][2]}
+
+
 def _device_total(event) -> float:
     """Device µs of the kernels launched under a CPU-side event."""
     for name in ("device_time_total", "cuda_time_total"):
@@ -2980,8 +3343,19 @@ def profile_steps(torch, step, kernels: dict, ranges=(), n: int = 3) -> dict:
                 "device_busy_ms_per_step": None, "device_idle_share": None}
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / n
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
+    # the time any kernel runs: the union of their intervals, which the sum
+    # above overcounts where streams overlap (NCCL's beside the compute)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in ranges_seen)
+    union, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            union += end - max(start, reach)
+            reach = end
     out = {"steps": n, "wall_ms_per_step_profiled": wall_ms,
            "device_busy_ms_per_step": busy_ms,
+           "device_busy_union_ms_per_step": union / 1e3 / n,
            "device_idle_share": 1 - busy_ms / wall_ms,
            "kernels_per_step": sum(e.count for e in device) / n}
     for label, name in kernels.items():
@@ -3083,6 +3457,7 @@ def main() -> int:
     phase_tools(torch, root, splits, os.path.join(PHASE11, "mesh"), 2, card)
     graphs_launches = phase_graphs(torch, ws, root, splits, train_lines, card,
                                    step_ms, busy_ms)
+    mesh_graphs_launches = phase_mesh_graphs(torch, ws, card) or {}
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
         if entry["name"] in SHIFTED:
@@ -3096,6 +3471,8 @@ def main() -> int:
         entry["launches_mesh_trainer_path"] = mesh_trainer_launches[entry["name"]]
         if entry["name"] in graphs_launches:
             entry["launches_graphs_path"] = graphs_launches[entry["name"]]
+        if entry["name"] in mesh_graphs_launches:
+            entry["launches_mesh_graphs_path"] = mesh_graphs_launches[entry["name"]]
 
     log(json.dumps({"kernels": entries}))
     log(card)

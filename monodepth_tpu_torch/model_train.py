@@ -30,6 +30,7 @@ CPU. Rank 0 writes the files and prints.
 from __future__ import annotations
 
 import argparse
+import gc
 
 import torch.distributed as dist
 
@@ -52,6 +53,7 @@ def main(argv=None):
         return Trainer(options(rest), device=args.device).train()
     finally:
         if grouped:
+            gc.collect()  # the Trainer's CUDA graphs (NCCL inside) before the group
             dist.destroy_process_group()
 
 

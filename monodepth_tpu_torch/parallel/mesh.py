@@ -21,6 +21,14 @@ host batch, `replicate` broadcasts the state from rank 0 and
 differentiable collectives (`all_reduce_sum`, `extend_rows`, `split_rows`,
 `gather_rows`) carry gradients through batch norm's statistics, the halo
 rows and the levels that run whole on every rank.
+
+The collectives of a `{data: n}` step (`all_reduce_sum` in synced batch
+norm, forward and backward; `average_gradients`; the metrics' all-reduces
+and `all_gather_cat`) read nothing back to the host, allocate only
+through the caching allocator (so inside a capture, from the graph's
+pool) and come in one order on every rank: over NCCL a CUDA graph
+captures them (`training/graphs.py`). gloo's collectives run on host
+tensors and cannot be captured.
 """
 
 from __future__ import annotations
@@ -92,7 +100,8 @@ class Mesh:
     """This rank's place in the ("data", "spatial") grid, its device and
     its process groups: `data_group` holds the ranks of this rank's
     spatial index (None when data == 1), `spatial_group` those of its data
-    index (None when spatial == 1)."""
+    index (None when spatial == 1); `backend` is the process group's
+    ("nccl" or "gloo"; None without one)."""
 
     data: int
     spatial: int
@@ -100,6 +109,7 @@ class Mesh:
     device: torch.device
     data_group: Any = None
     spatial_group: Any = None
+    backend: str | None = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -163,7 +173,8 @@ def make_mesh(data: int = 0, spatial: int = 1, device=None) -> Mesh:
             group = dist.new_group([d * spatial + s for s in range(spatial)])
             if d == rank // spatial:
                 spatial_group = group
-    return Mesh(data, spatial, rank, device, data_group, spatial_group)
+    backend = dist.get_backend() if dist.is_initialized() else None
+    return Mesh(data, spatial, rank, device, data_group, spatial_group, backend)
 
 
 def shard_batch(mesh: Mesh, batch: Mapping[str, Any]) -> Dict[str, Tensor]:

@@ -30,6 +30,16 @@ spatial mesh H/n, H/2n, ... while the level rule holds) and, on a card,
 `peak_bytes`, the most memory the rank's steps held
 (`torch.cuda.max_memory_allocated`, reset before them).
 
+The steps are the step makers' defaults: CUDA graphs on a `{data: n}`
+mesh over NCCL (`graphed` in the report), eager elsewhere. A captured
+step's first call is its eager warm-up and its second captures and
+replays, so a captured run calls the eval step twice on the same batch
+and index and reports the second (`eval_calls`). The report also gives each train call's host
+ms (`train_host_ms`, each ended by a device synchronize on a card) and
+the kernel launches of the last train call and of the last eval call
+(`launches_last_call`: with 2 or more train steps, one replay's when
+captured).
+
 With `--reference`, once every rank has left the process group, rank 0
 runs the same steps on one device on the global batches, and the eval
 step from the mesh's trained state, and adds the differences and the
@@ -85,6 +95,7 @@ from monodepth_tpu_torch.training.state import (
     module_grads,
 )
 from monodepth_tpu_torch.training.step import (
+    graph_refusal,
     local_warp,
     loss_choices,
     make_eval_step,
@@ -301,6 +312,7 @@ def run_rank(args) -> None:
     replicate(mesh, state)
     initial = copy.deepcopy(model).cpu() if args.reference and mesh.rank == 0 else None
     batches = host_batches(cfg, args.steps + 1, dtype)
+    graphed = graph_refusal(device, mesh) is None
     train_step = make_train_step(model, cfg, mesh=mesh)
     eval_step = make_eval_step(model, cfg, mesh=mesh)
     choices = _gathered_choices(mesh, first_choices(cfg, state, batches[0], mesh, device)) \
@@ -318,13 +330,31 @@ def run_rank(args) -> None:
     local_warp.calls = spatial_fallback.calls = 0
     _peak_reset(device)
     t0 = time.perf_counter()
-    losses, grads, train_metrics = [], None, {}
+    losses, grads, train_metrics, host_ms, last_call = [], None, {}, [], {}
+
+    def launches():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return {name: fn.launches for name, fn in KERNELS.items()}
+
     for i in range(args.steps):
-        train_metrics = _floats(train_step(state, shard_batch(mesh, batches[i])))
+        piece = shard_batch(mesh, batches[i])
+        before, t = launches(), time.perf_counter()
+        metrics = train_step(state, piece)
+        after = launches()
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        last_call["train"] = {k: after[k] - before[k] for k in after}
+        train_metrics = _floats(metrics)
         losses.append(train_metrics["loss"])
         if i == 0:
             grads = host_grads(model)
-    ev = _floats(eval_step(state, shard_batch(mesh, batches[-1]), 0))
+    piece = shard_batch(mesh, batches[-1])
+    eval_calls = 2 if graphed else 1
+    for _ in range(eval_calls):  # captured: the warm-up, then a capture
+        before = launches()
+        ev = _floats(eval_step(state, piece, 0))
+        after = launches()
+        last_call["eval"] = {k: after[k] - before[k] for k in after}
     peak = _peak_bytes(device)
     seconds = time.perf_counter() - t0
     hook.remove()
@@ -343,18 +373,23 @@ def run_rank(args) -> None:
         "launches": {name: fn.launches for name, fn in KERNELS.items()},
         "slab_warps": local_warp.calls, "fallbacks": spatial_fallback.calls,
         "seconds": seconds, "peak_bytes": peak, "level_rows": level_rows,
+        "graphed": graphed, "eval_calls": eval_calls, "train_host_ms": host_ms,
+        "launches_last_call": last_call,
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     # every rank leaves the group before rank 0's reference, which takes no
-    # collective: no rank waits on one while it runs
+    # collective: no rank waits on one while it runs. The steps go first: a
+    # CUDA graph that holds NCCL collectives must not outlive its group
+    del train_step, eval_step
+    gc.collect()
     if dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
     if args.reference and mesh.rank == 0:
         # the reference's peak starts, as the ranks' did, from its model alone
         mesh_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-        del state, model, train_step, eval_step
+        del state, model
         gc.collect()
         if device.type == "cuda":
             torch.cuda.empty_cache()

@@ -8,7 +8,12 @@ the infer step (`:393`). Run eagerly, the port's train step issues some
 5,100 kernel launches from Python a call, and the card waits between
 them. `GraphedStep` captures a step's body once per input signature and
 then replays it: one graph launch a call. The step makers of
-`training/step.py` use it on a card without a mesh (`graph=None`).
+`training/step.py` use it on a card (`graph=None`) without a mesh and on
+a `{data: n}` mesh over NCCL, as JAX's `jax.jit` on a mesh is one
+dispatch with GSPMD's collectives inside. A spatial mesh stays eager: its
+warps branch on the host (`.item()` of the group's slab flag), which a
+graph cannot hold. So does a gloo mesh: gloo's collectives run on host
+tensors.
 
 What a captured step needs, and where it is done:
 - static inputs: the inputs are a tree of dicts, lists and tensors (or
@@ -36,8 +41,27 @@ What a captured step needs, and where it is done:
   made new gradients), the key is captured again, so no replay works on
   memory that is no longer the state's.
 - capture_error_mode "thread_local": a CUDA call from another thread
-  (the loader's, the async checkpoint writer's) cannot break a capture.
+  (the loader's, the async checkpoint writer's, NCCL's watchdog querying
+  the events of eager collectives) cannot break a capture.
 - a capture that fails raises; nothing falls back to the eager step.
+
+Collectives (NCCL, a `{data: n}` mesh). A captured NCCL collective is a
+node of the graph, issued on the process group's internal stream, which
+the capture forks from and joins back to the capturing stream; its
+communicator must exist before the capture, which the warm-up call makes
+sure of (it runs the collectives eagerly on the side stream; the step
+makers' callers also run `parallel.mesh.warm_collectives`). The body
+reads nothing back to the host and issues its collectives in one order
+on every rank, so a replay issues the warm-up's collectives in the
+warm-up's order, and every call runs each of them once on every rank: a
+warm-up runs them eagerly, a capture records them without running them
+and then replays. A key is captured again on every rank in the same
+call: its bound tensors move only through calls that every rank makes
+alike, in the same order (each rank has the same keys, so another key's
+capture makes new gradients on every rank at once; the Trainer restores
+the same checkpoint on every rank in the same call, and each restore
+allocates Adam's moments anew while the old ones are still alive, so
+they move on every rank).
 """
 
 from __future__ import annotations

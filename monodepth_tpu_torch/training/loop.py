@@ -12,11 +12,15 @@ as `python -m monodepth_tpu_torch.model_train` does under torchrun):
   gradients and normalize batch norm over the global batch;
 - the batches of `Loader` go through `prefetch_to_device`, so the copies
   to the card overlap the step that runs;
-- on one card the train, validation and Eigen-infer calls are CUDA graphs
-  (`training.step`, `graph=None`): each copies its batch into the graph's
-  static inputs on the consuming stream and replays; the first call of
-  each shape runs eagerly and the second captures, after any pretrained
-  load and restore. On a mesh every step runs eagerly;
+- on one card, and on a mesh over NCCL (one rank a card), the train,
+  validation and Eigen-infer calls are CUDA graphs (`training.step`,
+  `graph=None`): each copies its batch into the graph's static inputs on
+  the consuming stream and replays; the first call of each shape runs
+  eagerly and the second captures, after any pretrained load and
+  restore. On a mesh the graphs hold the synced batch norm, the gradient
+  all-reduce and the metric reductions. Over gloo (ranks sharing a card,
+  or the CPU) every step runs eagerly: gloo's collectives run on host
+  tensors;
 - the metrics accumulate on the device and are fetched once per flush
   (`_Meter`), not once per step;
 - each epoch prints the reference's 8-metric table, appends a record to
@@ -262,9 +266,10 @@ class Trainer:
                     cfg.datapath, lines,
                     cache_dir=os.path.join(cfg.save_root, "gt_cache_eval"))
                 self._eigen = (lines, gts)
-            if self._eigen_infer is None:  # a CUDA graph on one card
+            if self._eigen_infer is None:  # a CUDA graph on a card, but over gloo
+                gloo = multi and self.mesh.backend != "nccl"
                 self._eigen_infer = make_infer_step(self.model, cfg, self.device,
-                                                    graph=False if multi else None)
+                                                    graph=False if gloo else None)
         except Exception as exc:  # noqa: BLE001 - a rank must reach the all-gather
             if not multi:
                 raise

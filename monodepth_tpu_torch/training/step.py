@@ -28,15 +28,21 @@ its backward recomputes the forward, so `WarpSample` launches K1 twice.
 Each step sets the model's mode itself: `.train()` for the train step
 (batch statistics, running statistics updated), `.eval()` for the others.
 
-On a card without a mesh every step maker returns a step that runs as a
-CUDA graph (`graph=None`; `training.graphs.GraphedStep`), the counterpart
-of JAX's `jax.jit`: each call replays one captured graph. The first call
-of each input shape runs eagerly, the second captures. `graph=False`
-keeps the eager step there; the CPU and a mesh always run eagerly (gloo
-collectives and the spatial mesh's host branch cannot be captured), and
-`graph=True` raises on them. The graphed steps draw the tie-break noise
-ahead (`draw_tie_noise`), from the same generators, so their bits equal
-the eager steps'.
+On a card every step maker returns a step that runs as a CUDA graph
+(`graph=None`; `training.graphs.GraphedStep`), the counterpart of JAX's
+`jax.jit`: each call replays one captured graph. The first call of each
+input shape runs eagerly, the second captures. That holds without a mesh
+and on a `{data: n}` mesh over NCCL, whose graphs hold the synced batch
+norm, the gradient all-reduce, Adam and the metric reductions, as JAX's
+one dispatch on a mesh holds them. Three cases stay eager, and
+`graph=True` raises on them, naming the reason (`graph_refusal`): the
+CPU; a gloo mesh, whose collectives run on host tensors; and a spatial
+mesh, whose warps branch on the host (`_spatial_sampler` reads the
+group's agreed slab flag with `.item()`, where JAX branches on the device
+with `lax.cond`). `graph=False` keeps the eager step anywhere. The
+graphed steps draw the tie-break noise ahead (`draw_tie_noise`; on a mesh
+the global batch's, cut to this rank's items), from the same generators,
+so their bits equal the eager steps'.
 
 Under a process mesh (`parallel.make_mesh`, `mesh=`), each rank holds its
 piece of the global batch (`parallel.shard_batch`) and the train and eval
@@ -349,19 +355,22 @@ def _stats_group(mesh: Mesh | None):
     return dist.group.WORLD
 
 
-def _rank_noise(noise, out: Dict[str, Any], cfg: Config, mesh: Mesh | None):
-    """This rank's items and rows of the global batch's tie-break noise. A
-    generator draws each scale's [B_global, H, W, n_sources] noise in the
-    order and type the loss would, so the ranks together use the single
-    device's noise."""
+def _rank_noise(noise, batch: Mapping[str, Tensor], cfg: Config, mesh: Mesh | None,
+                device: torch.device):
+    """This rank's items and rows of the global batch's tie-break noise,
+    for `batch`, this rank's piece. `noise` is a generator, which draws
+    each scale's [B_global, H, W, n_sources] noise on `device` in the
+    order and type the loss would, or that noise already drawn ({scale:
+    tensor}); so the ranks together use the single device's noise. Without
+    a mesh (or automasking) `noise` is handed on as it is."""
     if mesh is None or mesh.size == 1 or not cfg.use_automasking:
         return noise
-    target = out["target_pyr"][0]
-    b, h = target.shape[:2]
+    frames = batch["frames"]
+    b, h = frames.shape[0], frames.shape[2]
     if isinstance(noise, torch.Generator):
+        dtype = torch.promote_types(torch.float32, batch["jitter"].dtype)
         shape = (b * mesh.data, cfg.height, cfg.width, len(cfg.source_frame_ids))
-        noise = {s: tie_noise(noise, shape, target.dtype, target.device)
-                 for s in cfg.scales}
+        noise = {s: tie_noise(noise, shape, dtype, device) for s in cfg.scales}
     first, row0 = mesh.data_index * b, mesh.spatial_index * h
     return {s: v[first:first + b, row0:row0 + h] for s, v in noise.items()}
 
@@ -385,30 +394,52 @@ def tie_noise_generator(seed: int, step: int, index: int | None,
 
 
 def draw_tie_noise(cfg: Config, batch: Mapping[str, Tensor], seed: int,
-                   step: int, index: int | None,
-                   device: torch.device) -> Dict[int, Tensor]:
+                   step: int, index: int | None, device: torch.device,
+                   mesh: Mesh | None = None) -> Dict[int, Tensor]:
     """The tie-break noise of one step drawn ahead, {scale: [B, H, W,
     n_sources]} on `device`: `tie_noise_generator(seed, step, index)` drawn
     scale by scale in the order, shape and dtype in which `monodepth_loss`
     draws it, so a step handed this noise equals the step that draws it
-    ({} without automasking). The graphed steps feed it to their graphs."""
+    ({} without automasking). With `mesh`, `batch` is this rank's piece:
+    the global batch's noise is drawn and cut to this rank's items
+    (`_rank_noise`, as the eager mesh step draws it). The graphed steps
+    feed it to their graphs."""
     if not cfg.use_automasking:
         return {}
+    generator = tie_noise_generator(seed, step, index, device)
+    if mesh is not None and mesh.size > 1:
+        return _rank_noise(generator, batch, cfg, mesh, device)
     B, _, H, W, _ = batch["frames"].shape
     dtype = torch.promote_types(torch.float32, batch["jitter"].dtype)
-    generator = tie_noise_generator(seed, step, index, device)
     shape = (B, H, W, len(cfg.source_frame_ids))
     return {s: tie_noise(generator, shape, dtype, device) for s in cfg.scales}
 
 
+def graph_refusal(device: torch.device, mesh: Mesh | None) -> str | None:
+    """Why a step on `device` and `mesh` cannot run as a CUDA graph, or
+    None when it can (module docstring)."""
+    if device.type != "cuda":
+        return f"a CUDA graph needs a CUDA device, not {device}"
+    if mesh is None or mesh.size == 1:
+        return None
+    if mesh.spatial > 1:
+        return (f"a spatial mesh (spatial={mesh.spatial}) branches on the host in "
+                "every warp (K3 on the slab or the exact fallback, agreed with "
+                ".item()), which a CUDA graph cannot capture")
+    if mesh.backend != "nccl":
+        return (f"a mesh over {mesh.backend or 'no process group'} cannot be "
+                "captured: gloo's collectives run on host tensors; NCCL's can")
+    return None
+
+
 def _graphed(graph: bool | None, device: torch.device, mesh: Mesh | None) -> bool:
-    """Whether a step maker captures its step: by default on a CUDA device
-    without a mesh; `graph=True` elsewhere raises."""
+    """Whether a step maker captures its step: by default wherever it can
+    (`graph_refusal`); `graph=True` where it cannot raises."""
+    reason = graph_refusal(device, mesh)
     if graph is None:
-        return device.type == "cuda" and mesh is None
-    if graph and (device.type != "cuda" or mesh is not None):
-        raise ValueError(f"graph=True needs a CUDA device and no mesh; got "
-                         f"{device}{' with a mesh' if mesh is not None else ''}")
+        return reason is None
+    if graph and reason is not None:
+        raise ValueError(f"graph=True: {reason}")
     return bool(graph)
 
 
@@ -436,13 +467,14 @@ def _forward(model: Monodepth, batch: Dict[str, Tensor], noise, cfg: Config,
     """A step's forward and loss on this rank's piece -> (apply_and_warp's
     outputs, loss, the loss's terms): under a mesh batch norm sums over
     its ranks, and a spatial mesh runs on this rank's rows
-    (`parallel.rows.row_sharding`); the loss is this rank's part."""
+    (`parallel.rows.row_sharding`); the loss is this rank's part. `noise`
+    is this rank's (`_rank_noise`), or a generator without a mesh."""
     with sync_batch_stats(model, _stats_group(mesh)), \
             rows.row_sharding(mesh, cfg.height):
         out = apply_and_warp(model, batch, cfg, train=train, sampler=sampler)
         loss, aux = monodepth_loss(
             out["disps"], out["warped"], out["sources"], out["target_pyr"],
-            _rank_noise(noise, out, cfg, mesh), scales=cfg.scales,
+            noise, scales=cfg.scales,
             disp_smoothness=cfg.disp_smoothness,
             use_automasking=cfg.use_automasking, choices=choices)
     return out, loss, aux
@@ -462,8 +494,9 @@ def loss_choices(model: Monodepth, cfg: Config, batch: Mapping[str, Any], noise,
     for m in norms:
         m.keep_stats = True
     try:
-        _, _, aux = _forward(model, _to_device(batch, device), noise, cfg, mesh,
-                             True, _spatial_warp(cfg, mesh, None, train=True),
+        batch = _to_device(batch, device)
+        _, _, aux = _forward(model, batch, _rank_noise(noise, batch, cfg, mesh, device),
+                             cfg, mesh, True, _spatial_warp(cfg, mesh, None, train=True),
                              choices=True)
     finally:
         for m in norms:
@@ -513,8 +546,8 @@ def _check_optimizer(state: TrainState) -> None:
 def _train_runner(model: Monodepth, cfg: Config, device: torch.device,
                   sampler: Sampler | None, mesh: Mesh | None):
     """run(state, batch on the device, noise, lr=None) -> metrics: one
-    train step's body (the lr tensor, when given, replaces schedule(step):
-    `TrainState.apply_gradients`)."""
+    train step's body (`noise` as `_forward` takes it; the lr tensor, when
+    given, replaces schedule(step): `TrainState.apply_gradients`)."""
     sampler = _spatial_warp(cfg, mesh, sampler, train=True) or sampler
 
     def run(state: TrainState, batch: Dict[str, Tensor], noise, lr=None):
@@ -533,37 +566,46 @@ def _train_runner(model: Monodepth, cfg: Config, device: torch.device,
     return run
 
 
+def _train_calls(run, state: TrainState, inputs: Mapping[str, Any]) -> list:
+    """What a captured train step runs: `run` (`_train_runner`) once per
+    step of `inputs` (`_train_inputs`, their tensors on the device) ->
+    [metrics of each step]."""
+    return [run(state, batch, noise, lr) for batch, noise, lr
+            in zip(inputs["batches"], inputs["noise"], inputs["lr"])]
+
+
 def _train_inputs(cfg: Config, state: TrainState, batches: Sequence[Mapping[str, Any]],
                   noises: Sequence[Mapping[int, Tensor]] | None,
-                  device: torch.device) -> Dict[str, Any]:
+                  device: torch.device, mesh: Mesh | None = None) -> Dict[str, Any]:
     """The inputs of K captured train steps: the K batches (host or device
-    tensors), their tie-break noise (`noises`, else `draw_tie_noise` at
+    tensors; with `mesh`, this rank's pieces), their tie-break noise cut
+    to this rank (`noises`, the global batches', else `draw_tie_noise` at
     steps state.step + k) and their learning rates schedule(state.step +
     k), which become 0-d f32 tensors on the card (`training.graphs`)."""
     batches = [_host_or_device(b) for b in batches]
     if noises is None:
-        noises = [draw_tie_noise(cfg, b, state.seed, state.step + k, None, device)
+        noises = [draw_tie_noise(cfg, b, state.seed, state.step + k, None, device, mesh)
                   for k, b in enumerate(batches)]
+    else:
+        noises = [_rank_noise(dict(n), b, cfg, mesh, device)
+                  for n, b in zip(noises, batches)]
     return {"batches": batches, "noise": [dict(n) for n in noises],
             "lr": [float(state.schedule(state.step + k)) for k in range(len(batches))]}
 
 
 def _graphed_train(model: Monodepth, cfg: Config, device: torch.device,
-                   sampler: Sampler | None):
+                   sampler: Sampler | None, mesh: Mesh | None):
     """steps(state, batches, noises=None) -> [metrics of each step]: the K
     = len(batches) train steps of one call as one CUDA graph, a graph per
-    K and batch shape. The graph is bound to the `TrainState` of the first
-    call; another state raises. Each call draws the K steps' tie-break
-    noise (`draw_tie_noise`, steps state.step + k) unless `noises` are
-    given, and hands in the K learning rates schedule(state.step + k)."""
-    run = _train_runner(model, cfg, device, sampler, None)
+    K and batch shape; on a `{data: n}` mesh with its collectives inside.
+    The graph is bound to the `TrainState` of the first call; another
+    state raises. Each call draws the K steps' tie-break noise
+    (`draw_tie_noise`, steps state.step + k) unless `noises` are given,
+    and hands in the K learning rates schedule(state.step + k)."""
+    run = _train_runner(model, cfg, device, sampler, mesh)
     bound = {}
-
-    def body(inputs):
-        return [run(bound["state"], batch, noise, lr) for batch, noise, lr
-                in zip(inputs["batches"], inputs["noise"], inputs["lr"])]
-
-    graphed = GraphedStep(body, device, lambda: _train_bound(model, bound["state"]))
+    graphed = GraphedStep(lambda inputs: _train_calls(run, bound["state"], inputs),
+                          device, lambda: _train_bound(model, bound["state"]))
 
     def steps(state: TrainState, batches, noises=None):
         _check_optimizer(state)
@@ -580,7 +622,7 @@ def _graphed_train(model: Monodepth, cfg: Config, device: torch.device,
             raise ValueError("this captured train step is bound to the "
                              "TrainState of its first call; make another "
                              "step for another state")
-        inputs = _train_inputs(cfg, state, batches, noises, device)
+        inputs = _train_inputs(cfg, state, batches, noises, device, mesh)
         model.train()
         return graphed(inputs, state, steps=len(batches))
 
@@ -606,8 +648,9 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
     ("train_step/forward", "train_step/backward", "train_step/optimizer")
     of the eager step and of a capture, not of a replay.
 
-    `graph` (module docstring): on a card without a mesh the step is a
-    CUDA graph, bound to the `TrainState` of its first call.
+    `graph` (module docstring): on a card, without a mesh or on an NCCL
+    `{data: n}` mesh, the step is a CUDA graph, bound to the `TrainState`
+    of its first call.
 
     With `mesh`, `batch` is this rank's piece (`parallel.shard_batch`),
     `noise` is the global batch's, the step runs on the mesh's device and
@@ -615,7 +658,7 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
     on every rank (`parallel.replicate`)."""
     device = _step_device(device, mesh)
     if _graphed(graph, device, mesh):
-        steps = _graphed_train(model, cfg, device, sampler)
+        steps = _graphed_train(model, cfg, device, sampler, mesh)
 
         def graphed_step(state: TrainState, batch: Mapping[str, Any],
                          noise: Mapping[int, Tensor] | None = None):
@@ -629,7 +672,8 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
         _check_optimizer(state)
         if noise is None:
             noise = tie_noise_generator(state.seed, state.step, None, device)
-        return run(state, _to_device(batch, device), noise)
+        batch = _to_device(batch, device)
+        return run(state, batch, _rank_noise(noise, batch, cfg, mesh, device))
 
     return train_step
 
@@ -642,13 +686,13 @@ def make_train_multi_step(model: Monodepth, cfg: Config, device=None,
     sequence of K consecutive batches (this rank's pieces, with `mesh`),
     and the K steps run in order, each as `make_train_step`'s (same noise
     keys, same updates), so K calls of that step give the same state and
-    metrics. On a card without a mesh (`graph`, as `make_train_step`) the
-    K steps are one CUDA graph, the counterpart of the scan: one replay a
-    call. Eagerly they are K steps; the batches are not stacked, which
-    would only add a copy."""
+    metrics. Where `make_train_step` captures (`graph`) the K steps are
+    one CUDA graph, the counterpart of the scan: one replay a call, with K
+    gradient all-reduces inside on a mesh. Eagerly they are K steps; the
+    batches are not stacked, which would only add a copy."""
     device = _step_device(device, mesh)
     if _graphed(graph, device, mesh):
-        steps = _graphed_train(model, cfg, device, None)
+        steps = _graphed_train(model, cfg, device, None, mesh)
     else:
         train_step = make_train_step(model, cfg, device, mesh=mesh, graph=False)
 
@@ -694,7 +738,9 @@ def make_eval_step(model: Monodepth, cfg: Config, device=None,
             batch = _host_or_device(batch)
             if noise is None:
                 noise = draw_tie_noise(cfg, batch, state.seed, state.step, index,
-                                       device)
+                                       device, mesh)
+            else:
+                noise = _rank_noise(dict(noise), batch, cfg, mesh, device)
             model.eval()
             return graphed({"batch": batch, "noise": dict(noise)})
 
@@ -705,7 +751,8 @@ def make_eval_step(model: Monodepth, cfg: Config, device=None,
                   noise: Mapping[int, Tensor] | None = None):
         if noise is None:
             noise = tie_noise_generator(state.seed, state.step, index, device)
-        return run(_to_device(batch, device), noise)
+        batch = _to_device(batch, device)
+        return run(batch, _rank_noise(noise, batch, cfg, mesh, device))
 
     return eval_step
 

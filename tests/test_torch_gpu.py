@@ -3,8 +3,9 @@ backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
 against its plain PyTorch version, the launches of the eval and train
 steps (with --remat too), `prefetch_to_device`'s batches on the card,
 synced batch norm's own backward against autograd's, and the steps
-captured as CUDA graphs against the eager steps. Marked `gpu`;
-each test skips without a CUDA device. This file imports neither jax nor the JAX package and uses no
+captured as CUDA graphs against the eager steps, on one card and on a
+2-rank `{data: 2}` mesh over NCCL (which needs 2 cards). Marked `gpu`;
+each test skips without a CUDA device (the mesh test without 2). This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -852,3 +853,101 @@ def test_captured_step_guards(deterministic):
             resumed(twin, b)
     torch.cuda.synchronize()
     _assert_train_states_equal(state, twin)
+
+
+NCCL_WIRINGS = {  # the 2-rank NCCL card test: name -> Config fields
+    "separate": {},
+    "separate, --remat": {"remat": True},
+    "posecnn, frames (0, -1, 1, s)": {"pose_type": "posecnn", "frame_ids": (0, -1, 1, "s")},
+}
+
+
+def _nccl_graph_rank(arg) -> None:
+    """One of 2 NCCL ranks, one card each (`run_steps.spawn` target, arg
+    (out_dir, a key of NCCL_WIRINGS)): a `{data: 2}` mesh at 64x96, global
+    batch 4, bf16, cuDNN deterministic; 3 captured train calls and 3 eager
+    mesh steps from one state, then 3 captured and 3 eager eval calls with
+    ground truth; writes out_dir/rank<r>.pt with the metrics, the states
+    and the launches."""
+    import copy
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from monodepth_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+        shard_batch,
+        warm_collectives,
+    )
+    from monodepth_tpu_torch.parallel.run_steps import host_batches
+
+    out_dir, wiring = arg
+    init_distributed("cuda", timeout_s=120)
+    mesh = make_mesh(2, 1, "cuda")
+    warm_collectives(mesh)
+    torch.backends.cudnn.deterministic = True
+    cfg = Config(**dict(GRAPH_CFG, batch=4, **NCCL_WIRINGS[wiring]))
+    pieces = [shard_batch(mesh, b) for b in host_batches(cfg, 3, np.float32)]
+    state = create_state(cfg, build_model(cfg), steps_per_epoch=4)
+    twin = copy.deepcopy(state)
+    out = {"backend": dist.get_backend()}
+    for name, s, graph in (("graphed", state, None), ("eager", twin, False)):
+        train = make_train_step(s.model, cfg, mesh=mesh, graph=graph)
+        evaluate = make_eval_step(s.model, cfg, mesh=mesh, graph=graph)
+        before = _counts()
+        metrics = [train(s, {k: v for k, v in p.items() if k != "depth_gt"})
+                   for p in pieces]
+        metrics += [evaluate(s, p, i) for i, p in enumerate(pieces)]
+        torch.cuda.synchronize()
+        out[name] = {"metrics": [{k: v.cpu() for k, v in m.items()} for m in metrics],
+                     "launches": tuple(a - b for a, b in zip(_counts(), before)),
+                     "state": {k: v.cpu() for k, v in s.model.state_dict().items()},
+                     "adam": [{k: v.cpu() for k, v in e.items()}
+                              for e in s.optimizer.state.values()],
+                     "step": s.step}
+        del train, evaluate  # no CUDA graph with NCCL inside outlives the group
+        gc.collect()
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wiring", list(NCCL_WIRINGS))
+def test_captured_mesh_steps_equal_eager_over_nccl(cuda, tmp_path, wiring):
+    """On a `{data: 2}` mesh over NCCL (a rank a card) the captured train
+    and eval steps, their synced batch norm, gradient all-reduce, Adam with
+    its rate tensor and metric reductions inside the graph, equal the
+    eager mesh steps: max |diff| 0 over metrics (the eval's GT metrics
+    gathered), parameters, buffers and Adam state on both ranks, for the
+    default wiring, with --remat (synced batch norm's all-reduces issued
+    again in the backward's recomputation) and for `posecnn` with the
+    stereo frame; K1-bwd and K2 once a warp, K1 twice with --remat,
+    counted on both paths."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: NCCL puts one rank on each card")
+    from monodepth_tpu_torch.parallel.run_steps import spawn
+
+    cfg = Config(**dict(GRAPH_CFG, **NCCL_WIRINGS[wiring]))
+    warps = 3 * len(cfg.source_frame_ids) * len(cfg.scales)  # 3 calls
+    codes = spawn(_nccl_graph_rank, 2, (str(tmp_path), wiring), deadline_s=400)
+    assert codes == [0, 0], codes
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        graphed, eager = got["graphed"], got["eager"]
+        assert got["backend"] == "nccl"
+        assert graphed["launches"] == eager["launches"] \
+            == (warps, warps * (2 if cfg.remat else 1), warps)
+        assert graphed["step"] == eager["step"] == 3
+        for a, b in zip(graphed["metrics"], eager["metrics"]):
+            assert a.keys() == b.keys()
+            for key in a:
+                assert torch.equal(a[key], b[key]), (r, key)
+        assert "abs_rel" in graphed["metrics"][-1]
+        for key, value in graphed["state"].items():
+            assert torch.equal(value, eager["state"][key]), (r, key)
+        for a, b in zip(graphed["adam"], eager["adam"]):
+            for key in a:
+                assert torch.equal(a[key], b[key]), (r, key)

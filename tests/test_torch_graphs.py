@@ -10,7 +10,11 @@ capture itself runs only on a card: `tests/test_torch_gpu.py`, marked
   copies into its static buffers) gives the train and eval steps the
   bits of the noise drawn inside the loss, for K = 1 and K = 2, and the
   static inputs of K steps carry the rates schedule(step + k);
-- `graph=True` raises on the CPU and on a mesh; `_Meter` keeps its own
+- on a `{data: n}` mesh the noise drawn ahead is the global batch's, cut
+  to the rank's items as the eager mesh step cuts it;
+- `graph=True` raises on the CPU, a gloo mesh and a spatial mesh, and
+  `graph=None` captures on a card without a mesh or on an NCCL
+  `{data: n}` mesh; `_Meter` keeps its own
   copy of the first value it is handed; a checkpoint written before Adam
   became capturable on the card restores into either kind of Adam.
 """
@@ -256,23 +260,74 @@ def test_signatures_key_shapes_dtypes_and_structure():
 # --- where graphs run ----------------------------------------------------
 
 def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
+    """`graph=True` raises where a step cannot be captured, naming why: the
+    CPU (with or without a mesh), a gloo mesh and a spatial mesh (its
+    warps branch on the host); `graph=None` stays eager there. A
+    `{data: n}` mesh over NCCL captures, as does a mesh of one process
+    (no collective). The meshes are built directly, with no process
+    group."""
     cfg = _cfg()
     model = build_model(cfg, device="cpu")
     for make in (make_train_step, make_train_multi_step, make_eval_step,
                  make_infer_step):
-        with pytest.raises(ValueError, match="graph=True needs a CUDA device"):
+        with pytest.raises(ValueError, match="graph=True: a CUDA graph needs a CUDA "
+                                             "device, not cpu"):
             make(model, cfg, "cpu", graph=True)
-    meshes = (make_mesh(1, 1, "cpu"),  # a run_steps mesh of one process
-              Mesh(2, 1, 0, torch.device("cuda")))  # a rank of {data: 2}
-    for mesh in meshes:
-        for make in (make_train_step, make_train_multi_step, make_eval_step):
-            with pytest.raises(ValueError, match="with a mesh"):
-                make(model, cfg, mesh=mesh, graph=True)
     cuda = torch.device("cuda")
+    refused = {  # mesh -> what the message names
+        "cpu": (make_mesh(1, 1, "cpu"), "needs a CUDA device"),  # run_steps, one process
+        "cpu_data": (Mesh(2, 1, 0, CPU, backend="gloo"), "needs a CUDA device"),
+        "gloo": (Mesh(2, 1, 1, cuda, backend="gloo"), "over gloo cannot be captured"),
+        "no_group": (Mesh(2, 1, 0, cuda), "over no process group"),
+        "spatial": (Mesh(1, 2, 0, cuda, backend="nccl"), "spatial mesh .* branches on "
+                                                           "the host"),
+        "data_spatial": (Mesh(2, 2, 3, cuda, backend="nccl"), "spatial mesh"),
+    }
+    for name, (mesh, reason) in refused.items():
+        for make in (make_train_step, make_train_multi_step, make_eval_step):
+            with pytest.raises(ValueError, match="graph=True: .*" + reason):
+                make(model, cfg, mesh=mesh, graph=True)
+        assert step_module.graph_refusal(mesh.device, mesh) is not None, name
+        assert not step_module._graphed(None, mesh.device, mesh), name
+        assert not step_module._graphed(False, mesh.device, mesh), name
+    for mesh in (Mesh(2, 1, 0, cuda, backend="nccl"), Mesh(4, 1, 3, cuda, backend="nccl"),
+                 Mesh(1, 1, 0, cuda)):
+        assert step_module.graph_refusal(cuda, mesh) is None
+        assert step_module._graphed(None, cuda, mesh)
+        assert step_module._graphed(True, cuda, mesh)
+        assert not step_module._graphed(False, cuda, mesh)
     assert step_module._graphed(None, cuda, None)
-    assert not step_module._graphed(None, cuda, meshes[1])
     assert not step_module._graphed(None, CPU, None)
     assert not step_module._graphed(False, cuda, None)
+
+
+@pytest.mark.parametrize("data", [2, 4])
+@pytest.mark.parametrize("wiring", ["separate", "mono_stereo"])
+@pytest.mark.parametrize("index", [None, 3])
+def test_mesh_noise_drawn_ahead_is_the_ranks_cut(data, wiring, index):
+    """On a `{data: n}` mesh a graphed step is fed `draw_tie_noise(...,
+    mesh)`: the global batch's noise drawn ahead and cut to the rank's
+    items. For every data index it equals `_rank_noise`'s draw (the eager
+    mesh step's) and the single device's noise of the global batch at the
+    rank's items, bit for bit; a global noise handed in is cut the same
+    way. Train steps (`index` None) and eval batches."""
+    cfg = _cfg(batch=2 * data, **WIRINGS[wiring])
+    whole = step_module._host_or_device(_batch(cfg))
+    one = draw_tie_noise(cfg, whole, 42, 5, index, CPU)
+    for rank in range(data):
+        mesh = Mesh(data, 1, rank, CPU, backend="gloo")
+        piece = {k: v[2 * rank:2 * rank + 2] for k, v in whole.items()}
+        drawn = draw_tie_noise(cfg, piece, 42, 5, index, CPU, mesh)
+        eager = step_module._rank_noise(
+            step_module.tie_noise_generator(42, 5, index, CPU), piece, cfg, mesh, CPU)
+        handed = step_module._rank_noise(one, piece, cfg, mesh, CPU)
+        assert sorted(drawn) == sorted(eager) == sorted(handed) == list(cfg.scales)
+        for s in cfg.scales:
+            assert drawn[s].shape == (2, cfg.height, cfg.width,
+                                      len(cfg.source_frame_ids))
+            assert torch.equal(drawn[s], eager[s]), (rank, s)
+            assert torch.equal(drawn[s], one[s][2 * rank:2 * rank + 2]), (rank, s)
+            assert torch.equal(handed[s], drawn[s]), (rank, s)
 
 
 def test_graphed_step_needs_a_card():

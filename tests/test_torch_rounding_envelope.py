@@ -7,6 +7,7 @@ change moves something (so the tool measures rounding, not nothing)."""
 import pytest
 
 from monodepth_tpu_torch.tools.rounding_envelope import envelope
+from torch_parity import one_thread  # noqa: F401 (a fixture)
 
 CONFIG = ["--device", "cpu", "--height", "32", "--width", "64", "--batch", "2",
           "--use_pallas", "false"]
@@ -15,7 +16,9 @@ CHANGES = ["repeat", "jitter +1 ulp", "jitter -1 ulp", "jitter +2 ulp",
 
 
 @pytest.fixture(scope="module", params=["f64", "f32"])
-def result(request):
+def result(request, one_thread):
+    """The tool's runs at one intra-op thread: with torch's default, beside
+    five other test workers, the two took 266-438 s in a full run."""
     return request.param, envelope(CONFIG + (["--f64"] if request.param == "f64" else []))
 
 

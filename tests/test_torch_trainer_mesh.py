@@ -28,7 +28,11 @@ rank) with a 60 s collective timeout and a 600 s deadline for the run.
 - rank 0 alone writes states, exports, records and curves;
 - SIGTERM on rank 1 stops both ranks after the same epoch, with its
   checkpoint;
-- a `--data_parallel` the world does not fit raises."""
+- a `--data_parallel` the world does not fit raises;
+- the body a captured `{data: 2}` train step captures, run eagerly on the
+  noise drawn ahead for the global batch and cut to the rank's items,
+  equals the eager mesh step bit for bit (losses and state, 2 steps), on
+  the "mesh" run's ranks before their Trainer starts."""
 
 import dataclasses
 import json
@@ -117,7 +121,7 @@ def runs(tree, tmp_path_factory):
     base = tmp_path_factory.mktemp("mesh")
     worker = str(ROOT / "tests" / "torch_trainer_worker.py")
     procs = {
-        "mesh": _torchrun(worker, str(base / "mesh_out"),
+        "mesh": _torchrun(worker, str(base / "mesh_out"), "--graph_body",
                           *_flags(tree, base, "mesh", 2, "--async_ckpt", "true")),
         "split": _torchrun("-m", "monodepth_tpu_torch.model_train", "--device", "cpu",
                            *_flags(tree, base, "split", 1)),
@@ -336,3 +340,19 @@ def test_resume_follows_rank_zero_and_a_failed_read_raises_everywhere(tmp_path):
     for rank in (0, 1):
         assert f"rank {rank} latest 3" in out, out
         assert f"rank {rank} raised: restore of epoch 3 failed on rank(s) {{1: " in out, out
+
+
+def test_captured_mesh_body_equals_the_eager_mesh_step(runs):
+    """What a captured `{data: 2}` train step replays, run eagerly with the
+    noise drawn ahead (each rank 2 of the global 4 items a scale), gives
+    the eager mesh step's losses and state (parameters, buffers, Adam) bit
+    for bit, on both ranks; the eager step is held to JAX's mesh step by
+    `test_torch_parallel_steps.py` and `test_torch_wirings_mesh.py`."""
+    ranks = runs["mesh"]
+    for r in ranks:
+        body = r["graph_body"]
+        assert body["body_losses"] == body["eager_losses"], r["rank"]
+        assert body["state_max_abs_diff"] == 0.0, r["rank"]
+        assert body["steps"] == [2, 2]
+        assert body["noise_items"] == [[2, 2], [2, 2]]  # scales 0 and 1
+    assert ranks[0]["graph_body"]["eager_losses"] == ranks[1]["graph_body"]["eager_losses"]
