@@ -66,7 +66,13 @@ Phases, each fatal on failure:
    a. against its plain version at the slabs of the {spatial: 2} and
       {spatial: 4} meshes at 640x192 b12 (224- and 144-row slabs, every
       shard), on smooth, wild and NaN/inf fields, and one odd shape:
-      max |diff| <= 1e-6, NaN where the plain version has NaN;
+      max |diff| <= 1e-6, NaN where the plain version has NaN; and K3 as
+      the exact warp runs it, on the whole image (row0 0) at each
+      {spatial: 2} rank's grid rows, on the same fields: max |diff| <=
+      1e-6 against its plain version, equal to those rows of K1's whole
+      warp, and on the smooth field equal to its launch on the rank's
+      halo-64 slab (what a captured spatial step, which always gathers,
+      needs to equal the eager one);
    b. the one-card spatial path: the grids and sources of one headline
       train step (a copy of the trained state), and for n in {2, 4} every
       rank's `local_warp` with the halo rows cut from the whole image as
@@ -79,6 +85,14 @@ Phases, each fatal on failure:
    c. its device time at the {spatial: 2} slab (as phase 3), beside its
       bound from this run's taps, its plain version's time, K1/K2's on the
       whole image and `F.grid_sample` on the slab;
+   d. the captured steps' spatial warp: `spatial_fallback` (the group's
+      rows all-gathered, K3 on them) at 640x192 b12 in a one-rank NCCL
+      world (its all-gather a copy), both forms captured by a
+      `GraphedStep`: a replay equals the eager slab warp (`local_warp`,
+      halo 64) and the eager gather at max |diff| 0 over out and the
+      grid's gradient, counts one `spatial_fallback`, one K3 and, in the
+      train form, one K1-bwd, and its profile shows K3 and no synchronize
+      or device-to-host copy;
 7. `parallel.run_steps` at the headline config (2 train steps and an eval
    step) for three pose wirings (`separate`; `posecnn` with the stereo
    frame; `shared` with pose_frames "all"), in f32 and bf16: with one
@@ -86,9 +100,11 @@ Phases, each fatal on failure:
    collectives staged through host memory); with 2 or more cards, over
    NCCL one card a rank, {spatial: 2} and, with 4, {data: 2, spatial: 2}.
    Each rank's launches checked, its counts set to 0 just before the steps
-   (spatial: every warp a K3 launch on its slab, no fallback, one K1-bwd
-   per train-form K3, no K1 or K2; data: K1 and K1-bwd once per train
-   warp, K2 once per eval warp, no K3), each rank's feature levels (a
+   (spatial: every warp a K3 launch, one K1-bwd per train-form K3, no K1
+   or K2; eagerly every warp on its slab at the 64-row halo, no
+   fallback; captured, every warp on the gathered rows; data: K1 and
+   K1-bwd once per train warp, K2 once per eval warp, no K3), each
+   rank's feature levels (a
    spatial rank's depth encoder ran on its rows, 96/48/24/12/6/3 on
    {spatial: 2}: nothing gathers the frames), each rank's and the one-card
    reference's peak memory (the {spatial: 2} `separate` bf16 rank's
@@ -256,6 +272,27 @@ Phases, each fatal on failure:
    e. `run_steps` f32 on the same mesh, captured, with --reference: phase
       7's f32 bounds against one card (2e-6 in the first step, 1e-5 after
       it, 1e-6 in the eval step);
+   f. the spatial meshes over NCCL: `{spatial: 2}` on cards 0 and 1 and,
+      with 4 cards, `{data: 2, spatial: 2}`, at the headline config with 12
+      items a data row, each captured warp on the group's gathered rows,
+      on three fields where `graph=False` warps differently
+      (PHASE14_FIELDS: the seeded init at halo 64, every eager warp on
+      its slab; halo 0, every warp exact; the stereo frame with the last
+      data row's `stereo_T` lifted, whose group warps its "s" warps
+      exactly): 3 captured train calls and a traced replay, K=2 (3 calls)
+      and eval (3 calls, sparse GT) against `graph=False` from one state,
+      cuDNN deterministic: on every rank max |diff| 0 over losses,
+      metrics, parameters, buffers and Adam state; every call's counts
+      (K2, K1, K1-bwd, both forms of K3, slab and exact warps) one K3 a
+      warp and one K1-bwd a train warp on both paths, no K1 or K2, the
+      captured warps all exact and the eager ones split as the field
+      says; no plain version; a replay's trace with NCCL kernels, no
+      synchronize and no device-to-host copy;
+   g. each spatial rank's host ms, device-busy ms, idle share, NCCL ms
+      and kernels a call of the captured and the eager train step (as
+      14d, 12 items a data row), and each path's peak memory beside the
+      captured one-card step's on the same 12 items: the captured rank's
+      at most 0.75x;
    and phase 11 runs its mesh Trainer captured over NCCL, beside an eager
    one (losses equal, img/s of both);
 15. the `kernels` JSON line, then the last line
@@ -271,7 +308,8 @@ Phases, each fatal on failure:
    K1, K1-bwd and K2 the kernels `torch.profiler` saw in one replay of
    phase 13c's train graph and 13b's eval graph ("launches_graphs_path"),
    and, with 2 or more cards, those counted in one replay on rank 0 of
-   phase 14's mesh graphs ("launches_mesh_graphs_path").
+   phase 14's mesh graphs ("launches_mesh_graphs_path": K1, K1-bwd and K2
+   on `{data: n}`, both forms of K3 on `{spatial: 2}`).
 
 Every step on one card without a mesh runs as a CUDA graph from its
 second call on (`graph=None`), so phases 5, 8, 9, 10 and 12 drive the
@@ -279,9 +317,11 @@ captured steps; a kernel's launches on a replayed path are counted by the
 graph (`training/graphs.py`: the launches its capture recorded, per
 replay), kernel executions as before, and 13b and 13c hold that count
 against the kernels a profile of one replay shows. On a mesh the steps
-are graphs over NCCL with spatial 1 (phase 14, phase 11 with 2 or more
-cards) and eager over gloo and on a spatial mesh (phase 7; phase 11 on
-one card).
+are graphs over NCCL, spatial or not (phase 14, phase 11 with 2 or more
+cards, phase 7 with 2 or more), and eager over gloo (phase 7 and phase
+11 on one card). A captured spatial step takes no branch: every warp
+gathers its group's rows and runs K3 on them (`training/step.py`
+`_spatial_sampler`).
 """
 
 from __future__ import annotations
@@ -1119,6 +1159,46 @@ def phase_shifted_kernels(torch, dev, ws, cfg, card, entries):
         errs["warp_sample_fwd_shifted"] = max(errs["warp_sample_fwd_shifted"], e1)
         errs["warp_sample_fwd_grads_shifted"] = max(errs["warp_sample_fwd_grads_shifted"], e2)
 
+    # the exact warp: K3 on the gathered image (row0 0) at a {spatial: 2}
+    # rank's grid rows, against its plain version, those rows of K1's
+    # whole warp and, on the smooth field, its launch on the halo-64 slab
+    from monodepth_tpu_torch.training.step import slab_holds_taps
+
+    B, H, W = cfg.batch, cfg.height, cfg.width
+    Hl, halo = H // 2, 64
+    image = torch.from_numpy(rng.uniform(size=(B, H, W, 3)).astype(np.float32)).to(dev)
+    pad = torch.zeros(B, halo, W, 3, device=dev)
+    padded = torch.cat([pad, image, pad], 1)
+    for kind, field in warp_fields(rng, B, H, W).items():
+        grid = torch.from_numpy(field).to(dev)
+        whole = ws.warp_sample_grads(image, grid)
+        for s in range(2):
+            rows = grid[:, s * Hl:(s + 1) * Hl].contiguous()
+            out = ws.warp_sample_shifted(image, rows, 0, H)
+            grads = ws.warp_sample_grads_shifted(image, rows, 0, H)
+            torch.cuda.synchronize()
+            e = max(compare(f"K3 on the gathered rows {kind} rank {s}", [out],
+                            [ws.warp_sample_shifted_reference(image, rows, 0, H)]),
+                    compare(f"K3 train form on the gathered rows {kind} rank {s}", grads,
+                            ws.warp_sample_grads_shifted_reference(image, rows, 0, H)))
+            same = all(torch.equal(a.nan_to_num(), b[:, s * Hl:(s + 1) * Hl].nan_to_num())
+                       for a, b in zip(grads, whole))
+            check(e <= 1e-6 and same, f"K3 on rank {s}'s rows of the gathered image, "
+                  f"{kind}: max|diff| {e} vs plain, equal to the whole warp's rows: {same}")
+            if kind == "smooth":
+                row0 = s * Hl - halo
+                check(bool(slab_holds_taps(rows, row0, Hl + 2 * halo, H)),
+                      f"smooth field, rank {s}: a tap leaves the halo-{halo} slab")
+                slab = padded[:, s * Hl:s * Hl + Hl + 2 * halo].contiguous()
+                on_slab = ws.warp_sample_grads_shifted(slab, rows, row0, H)
+                check(all(torch.equal(a, b) for a, b in zip(on_slab, grads))
+                      and torch.equal(ws.warp_sample_shifted(slab, rows, row0, H), out),
+                      f"smooth field, rank {s}: K3 on the slab and on the gathered "
+                      "rows differ")
+    log(f"K3 at a {{spatial: 2}} rank's rows of the gathered {B}x{H}x{W} image (the "
+        "exact warp): equal to the plain version and the whole warp's rows, and on the "
+        f"smooth field to its launch on the halo-{halo} slab")
+
     # phase 6c: the {spatial: 2} shard s=1 (rows 96-191, 224-row slab from
     # row 32) on the smooth field, 4 input sets larger than L2
     B, H, W, C = cfg.batch, cfg.height, cfg.width, 3
@@ -1246,6 +1326,99 @@ def phase_spatial_path(torch, ws, cfg, state, batch, card) -> dict:
     return launches
 
 
+def spatial_gather_replays(torch, ws, train: bool, B: int = 12, H: int = 192,
+                           W: int = 640, halo: int = 64) -> dict:
+    """The captured steps' spatial warp, `spatial_fallback` (the group's
+    rows all-gathered, K3 on them), of one rank whose spatial group is the
+    one-rank NCCL world the caller started (its all-gather a copy), on the
+    smooth field. A `GraphedStep` captures it (with the grid's gradient for
+    a fixed cotangent with `train`); one replay is held against the eager
+    slab warp (`local_warp`, `halo` zero rows at each edge) and the eager
+    gather -> {max |diff| of each output against each, the counts of the
+    replay, `replay_trace` of one more replay}."""
+    import numpy as np
+
+    from monodepth_tpu_torch.parallel.mesh import Mesh
+    from monodepth_tpu_torch.training.graphs import COUNTED, GraphedStep
+    from monodepth_tpu_torch.training.step import local_warp, spatial_fallback
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh(1, 1, 0, dev, backend="nccl")  # no spatial group: the world's
+    rng = np.random.default_rng(14)
+    zeros = torch.zeros(B, halo, W, 3, device=dev)
+    inputs = {"own": torch.from_numpy(rng.uniform(size=(B, H, W, 3)).astype(np.float32)),
+              "grid": torch.from_numpy(warp_fields(rng, B, H, W)["smooth"]),
+              "dout": torch.from_numpy(rng.standard_normal((B, H, W, 3)).astype(np.float32))}
+    inputs = {k: v.to(dev) for k, v in inputs.items()}
+
+    def warp(x, gather: bool):
+        with torch.enable_grad() if train else torch.inference_mode():
+            grid = x["grid"].detach().requires_grad_(train)
+            out = (spatial_fallback(x["own"], grid, mesh, train) if gather
+                   else local_warp(x["own"], zeros, zeros, grid, 0, H, train))
+            if not train:
+                return {"out": out}
+            (dgrid,) = torch.autograd.grad(out, grid, x["dout"])
+            return {"out": out.detach(), "dgrid": dgrid}
+
+    graphed = GraphedStep(lambda x: warp(x, True), dev, lambda: [zeros])
+    graphed(inputs)  # the warm-up
+    graphed(inputs)  # the capture, then its replay
+    torch.cuda.synchronize()
+    before = [getattr(fn, attr) for fn, attr in COUNTED]
+    got = graphed(inputs)
+    torch.cuda.synchronize()
+    counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) - n
+              for (fn, attr), n in zip(COUNTED, before)}
+    report = {"replay": counts, "max_abs_diff": {
+        against: {k: float((got[k] - want[k]).abs().max()) for k in want}
+        for against, want in (("slab", warp(inputs, False)),
+                              ("eager_gather", warp(inputs, True)))}}
+    report["trace"] = replay_trace(torch, lambda: graphed(inputs))
+    del graphed  # no graph holding an NCCL collective outlives the group
+    return report
+
+
+def phase_spatial_gather(torch, ws, card) -> None:
+    """Phase 6d: the captured steps' spatial warp on one card
+    (`spatial_gather_replays` at 640x192 b12, halo 64, both forms) in a
+    one-rank NCCL world: a replay equals the eager slab warp and the eager
+    gather (max |diff| 0 over out and the grid's gradient), counts one
+    `spatial_fallback`, one K3 of its form and, in the train form, one
+    K1-bwd, and nothing else, and a profile of a replay shows K3 (the
+    `__global__` of K1 or K2 with a row offset) and K1-bwd once each, no
+    synchronize and no device-to-host copy."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    store = dist.TCPStore("localhost", 0, 1, is_master=True, wait_for_workers=False)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        reports = {train: spatial_gather_replays(torch, ws, train) for train in (True, False)}
+    finally:
+        dist.destroy_process_group()
+    for train, r in reports.items():
+        form = "train" if train else "eval"
+        k3 = "warp_sample_grads_shifted" if train else "warp_sample_shifted"
+        log(json.dumps({"phase": f"6d, the captured spatial warp ({form} form: all-gather, "
+                                 "K3), one-rank NCCL world, 640x192 b12, vs the halo-64 slab",
+                        **r, "card": card}))
+        who = f"phase 6d {form}"
+        check(all(v == 0 for d in r["max_abs_diff"].values() for v in d.values()),
+              f"{who}: replay vs eager {r['max_abs_diff']}")
+        want = {k: 0 for k in r["replay"]}
+        want.update({"spatial_fallback.calls": 1, f"{k3}.launches": 1,
+                     "grid_vjp.launches": int(train)})
+        check(r["replay"] == want, f"{who}: replay counts {r['replay']}, expected {want}")
+        trace = r["trace"]  # K3 launches the same __global__ as K1 or K2
+        kernels = ({"warp_sample_fwd_grads_kernel": 1, "warp_sample_bwd_grid_kernel": 1}
+                   if train else {"warp_sample_fwd_kernel": 1})
+        check(trace["graph_launches_in_call"] >= 1 and not trace["synchronize_calls_in_call"]
+              and not trace["device_to_host_copies"] and trace["warp_kernels"] == kernels,
+              f"{who}: the trace of a replay: {trace}, expected warp kernels {kernels}")
+    log(f"phase 6d: {time.perf_counter() - t0:.1f} s; {card}")
+
+
 PHASE7_WIRINGS = {  # phase 7: wiring -> its run_steps config flags
     "separate": [],
     "posecnn_s": ["--pose_type", "posecnn", "--frame_ids", "0 -1 1 s"],
@@ -1286,10 +1459,11 @@ def _run_steps_finish(torch, run, proc, out):
     first-step gradients of the mesh and of one card by module), its
     launches checked: each of the 2 train steps and the eval step warps
     w times (8, or 12 with "s"); a captured run calls its eval step twice
-    (`eval_calls`: the warm-up, then the capture). A spatial mesh warps each on a slab (one
-    K3 launch; at the 64-row halo no fallback), K1 and K2 never, and each
-    train-form slab warp's backward is one K1-bwd launch; a data mesh
-    warps whole images, K1 and K1-bwd 2w times, K2 w times, K3 never. And
+    (`eval_calls`: the warm-up, then the capture). A spatial mesh warps each
+    with one K3 launch, K1 and K2 never, and each train-form K3's backward
+    is one K1-bwd launch: eagerly on its slab (at the 64-row halo no
+    fallback), captured on the gathered rows (every warp a fallback); a data mesh warps
+    whole images, K1 and K1-bwd 2w times, K2 w times, K3 never. And
     the levels each rank's depth encoder ran on: H/n, H/2n, ... rows on
     a spatial mesh, the whole image's on a data mesh."""
     name, data, spatial, wiring, precision, backend = run
@@ -1308,7 +1482,9 @@ def _run_steps_finish(torch, run, proc, out):
         n = r["launches"]
         k3 = n["warp_sample_fwd_grads_shifted"] + n["warp_sample_fwd_shifted"]
         if spatial > 1:
-            ok = (k3 == r["slab_warps"] == 3 * w and r["fallbacks"] == 0
+            warps = (2 + r["eval_calls"]) * w
+            paths = (0, warps) if r["graphed"] else (warps, 0)  # (slab, exact)
+            ok = (k3 == warps and (r["slab_warps"], r["fallbacks"]) == paths
                   and n["warp_sample_fwd"] == n["warp_sample_fwd_grads"] == 0
                   and n["warp_sample_bwd_grid"] == n["warp_sample_fwd_grads_shifted"])
         else:
@@ -3014,9 +3190,13 @@ PHASE14 = os.path.join(HERE, "build", "phase14")
 def replay_trace(torch, fn) -> dict:
     """`torch.profiler` over one call of fn() (a replay), inside a
     "mesh_replay" range that a device synchronize follows: the NCCL
-    kernels the card ran, any device-to-host copy, and the synchronize
+    kernels, the warp kernels (by name, with their counts) and the number
+    of copies the card ran, any device-to-host copy by name, and the
+    synchronize
     calls and graph launches the host made inside the range. The check of
     "no synchronize" stands only if the trace shows the graph launch."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -3032,7 +3212,10 @@ def replay_trace(torch, fn) -> dict:
               and start <= e.time_range.start <= end]
     device = [e.name for e in events if e.device_type == cuda and e.name != "mesh_replay"]
     nccl = [name for name in device if "nccl" in name.lower()]
+    warps = [re.search(r"warp_sample\w*", n).group(0) for n in device if "warp_sample" in n]
     return {"nccl_kernels": sorted(set(nccl)), "nccl_launches": len(nccl),
+            "warp_kernels": {n: warps.count(n) for n in sorted(set(warps))},
+            "copies": sum("Memcpy" in n for n in device),
             "device_to_host_copies": [n for n in device if "DtoH" in n],
             "synchronize_calls_in_call": [n for n in inside if "Synchronize" in n],
             "graph_launches_in_call": sum("cudaGraphLaunch" in n for n in inside),
@@ -3042,10 +3225,11 @@ def replay_trace(torch, fn) -> dict:
 def _mesh_step_clock(torch, cfg, mesh, host_batches) -> dict:
     """Host ms (median of 10), device-busy ms (`torch.profiler` over 3
     calls: the kernels' summed time, and the union of their intervals, as
-    NCCL's stream overlaps the compute's) and idle share of the captured
-    and the eager mesh train step on this rank, each from its own fresh
-    replicated state, both warmed (a captured one's warm-up and capture)
-    first; and each path's peak memory."""
+    NCCL's stream overlaps the compute's), idle share, and the NCCL
+    kernels' and the all-gathers' device ms of the captured and the eager
+    mesh train step on this rank, each from its own fresh replicated
+    state, both warmed (a captured one's warm-up and capture) first; and
+    each path's peak memory."""
     import gc
 
     from monodepth_tpu_torch.parallel.mesh import replicate, shard_batch
@@ -3063,7 +3247,7 @@ def _mesh_step_clock(torch, cfg, mesh, host_batches) -> dict:
         fn(0)
         fn(1)
         ms = host_ms(torch, fn)
-        prof = profile_steps(torch, fn, {"nccl": "nccl"}, n=3)
+        prof = profile_steps(torch, fn, {"nccl": "nccl", "all_gather": "AllGather"}, n=3)
         busy = prof["device_busy_ms_per_step"]
         union = prof.get("device_busy_union_ms_per_step")
         out[name] = {"host_ms": ms, "device_busy_ms": busy,
@@ -3073,6 +3257,8 @@ def _mesh_step_clock(torch, cfg, mesh, host_batches) -> dict:
                      "kernels_per_call": prof.get("kernels_per_step"),
                      "nccl_device_ms": prof.get("nccl_device_ms_per_step"),
                      "nccl_launches": prof.get("nccl_launches_per_step"),
+                     "all_gather_device_ms": prof.get("all_gather_device_ms_per_step"),
+                     "all_gather_launches": prof.get("all_gather_launches_per_step"),
                      "peak_bytes": torch.cuda.max_memory_allocated()}
         del state, step, fn
         gc.collect()
@@ -3208,12 +3394,262 @@ def _mesh_graphs_rank(out_dir) -> None:
     dist.destroy_process_group()
 
 
+PHASE14_FIELDS = {  # phase 14's spatial meshes: field -> Config fields
+    "smooth": {},                    # the seeded init at halo 64: every warp on its slab
+    "halo 0": {"spatial_halo": 0},   # every warp exact
+    # the last data row's items get stereo_T lifted 0.5 along y: their
+    # group warps the 4 "s" warps of a step exactly, the 8 others on slabs
+    "mixed": {"frame_ids": (0, -1, 1, "s")},
+}
+
+
+def lifted_stereo(cfg, host: list, data: int) -> list:
+    """`host` global batches with the last data row's items' `stereo_T`
+    lifted 0.5 along y (where the config has the stereo frame): their
+    group's "s" warps leave every slab."""
+    for b in host:
+        if "stereo_T" in b:
+            b["stereo_T"][-(cfg.batch // data):, 1, 3] = 0.5
+    return host
+
+
+def _spatial_graphs_rank(arg) -> None:
+    """One rank of phase 14's spatial meshes (a `run_steps.spawn` target,
+    arg (out_dir, data, spatial)): NCCL, the headline config with 12 items
+    a data row, cuDNN deterministic, for each of PHASE14_FIELDS the
+    captured train (3 calls and a traced replay), K=2 (3 calls) and eval
+    (3 calls, sparse GT) steps against `graph=False` from one replicated
+    state, with the counts (K2, K1, K1-bwd, K3 train and eval forms, slab
+    and exact warps) of every call; then the step
+    clock of the smooth field, and on rank 0 the captured one-card step's
+    peak memory; writes out_dir/rank<r>.json."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from monodepth_tpu_torch.config import Config
+    from monodepth_tpu_torch.ops.cuda import warp_sample as ws
+    from monodepth_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+        replicate,
+        shard_batch,
+        warm_collectives,
+    )
+    from monodepth_tpu_torch.parallel.run_steps import host_batches
+    from monodepth_tpu_torch.training import step as step_module
+    from monodepth_tpu_torch.training.state import build_model, create_state
+    from monodepth_tpu_torch.training.step import (
+        local_warp,
+        make_eval_step,
+        make_train_multi_step,
+        make_train_step,
+        spatial_fallback,
+    )
+
+    out_dir, data, spatial = arg
+    init_distributed("cuda", timeout_s=300)
+    mesh = make_mesh(data, spatial, "cuda")
+    warm_collectives(mesh)
+    counters = ((ws.warp_sample, "launches"), (ws.warp_sample_grads, "launches"),
+                (ws.grid_vjp, "launches"), (ws.warp_sample_grads_shifted, "launches"),
+                (ws.warp_sample_shifted, "launches"), (local_warp, "calls"),
+                (spatial_fallback, "calls"))
+
+    def counts():
+        torch.cuda.synchronize()
+        return tuple(getattr(fn, attr) for fn, attr in counters)
+
+    def per_call(fn, calls):
+        """[outputs], [counts of each call]."""
+        outs, got = [], []
+        for c in calls:
+            before = counts()
+            outs.append(fn(c))
+            got.append([a - b for a, b in zip(counts(), before)])
+        return outs, got
+
+    report = {"rank": mesh.rank, "mesh": mesh.shape, "device": str(mesh.device),
+              "backend": dist.get_backend(), "counts_order": [
+                  "K2", "K1", "K1-bwd", "K3 train", "K3 eval", "slab warps", "exact warps"],
+              "fields": {}}
+    plain = [(ws, "warp_sample_reference"), (ws, "warp_sample_grads_reference"),
+             (ws, "grid_vjp_reference"), (step_module, "grid_sample")]
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for field, fields in PHASE14_FIELDS.items():
+            cfg = Config(batch=12 * data, **fields).validate()
+            host = lifted_stereo(cfg, host_batches(cfg, 6, np.float32), data)
+            pieces = [shard_batch(mesh, b) for b in host]
+            train_pieces = [{k: v for k, v in p.items() if k != "depth_gt"} for p in pieces]
+            state = replicate(mesh, create_state(cfg, build_model(cfg), steps_per_epoch=100))
+            twin = copy.deepcopy(state)
+            out = {"warps_a_step": len(cfg.source_frame_ids) * len(cfg.scales)}
+            with counted(plain) as plain_calls:
+                graphed = make_train_step(state.model, cfg, mesh=mesh)
+                eager = make_train_step(twin.model, cfg, mesh=mesh, graph=False)
+                got, out["train_counts"] = per_call(lambda b: graphed(state, b),
+                                                    train_pieces[:3])
+                want, out["train_counts_eager"] = per_call(lambda b: eager(twin, b),
+                                                           train_pieces[:3])
+                out["train"] = {"state_max_abs_diff": state_diff(state, twin),
+                                "metrics_max_abs_diff": max(metrics_diff(g, w)
+                                                            for g, w in zip(got, want)),
+                                "losses": [float(m["loss"]) for m in got]}
+                out["trace"] = replay_trace(torch, lambda: graphed(state, train_pieces[3]))
+                eager(twin, train_pieces[3])
+                out["train"]["state_max_abs_diff_after_traced"] = state_diff(state, twin)
+                multi = make_train_multi_step(state.model, cfg, mesh=mesh)
+                multi_eager = make_train_multi_step(twin.model, cfg, mesh=mesh, graph=False)
+                pairs = [train_pieces[i:i + 2] for i in (0, 2, 4)]
+                got, out["k2_counts"] = per_call(lambda b: multi(state, b), pairs)
+                want, out["k2_counts_eager"] = per_call(lambda b: multi_eager(twin, b), pairs)
+                out["k2"] = {"state_max_abs_diff": state_diff(state, twin),
+                             "metrics_max_abs_diff": max(metrics_diff(g, w)
+                                                         for g, w in zip(got, want))}
+                eval_graphed = make_eval_step(state.model, cfg, mesh=mesh)
+                eval_eager = make_eval_step(state.model, cfg, mesh=mesh, graph=False)
+                got, out["eval_counts"] = per_call(
+                    lambda i: eval_graphed(state, pieces[i], i), range(3))
+                want, out["eval_counts_eager"] = per_call(
+                    lambda i: eval_eager(state, pieces[i], i), range(3))
+                out["eval"] = {"metrics_max_abs_diff": max(metrics_diff(g, w)
+                                                           for g, w in zip(got, want)),
+                               "keys": sorted(got[0]),
+                               "losses": [float(m["loss"]) for m in got]}
+            out["plain_version_calls"] = plain_calls
+            report["fields"][field] = out
+            del state, twin, graphed, eager, multi, multi_eager, eval_graphed, eval_eager
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # speed and memory: cuDNN as in phase 5a, the smooth field
+    cfg = Config(batch=12 * data).validate()
+    report["clock"] = _mesh_step_clock(torch, cfg, mesh, [
+        {k: v for k, v in h.items() if k != "depth_gt"}
+        for h in host_batches(cfg, 3, np.float32)])
+    dist.barrier()
+    if mesh.rank == 0:  # the captured one-card step on the same 12 items
+        one = Config(batch=12).validate()
+        state = create_state(one, build_model(one), steps_per_epoch=100)
+        step = make_train_step(state.model, one)
+        batches = [{k: v for k, v in h.items() if k != "depth_gt"}
+                   for h in host_batches(one, 3, np.float32)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        report["one_card_captured_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_spatial_graphs(reports, card, data: int, spatial: int) -> dict:
+    """Phase 14's bounds on a spatial mesh's rank reports (`_spatial_graphs_rank`):
+    captured equals eager at max |diff| 0 in every field and path; on both
+    paths every call one K3 a warp and one K1-bwd a train warp, no K1 or
+    K2, the captured warps all exact and the eager ones split as the field
+    says (the smooth field's all on slabs, halo 0's all exact, the mixed
+    field's "s" warps exact on the lifted group only); no plain version; a replay's trace without a synchronize or DtoH copy, NCCL
+    kernels inside; every rank's captured peak at most 0.75x the captured
+    one-card step's. Returns rank 0's counts of one train replay and one
+    eval replay of the smooth field."""
+    name = f"{{data: {data}, spatial: {spatial}}}"
+    one_peak = reports[0]["one_card_captured_peak_bytes"]
+    for r in reports:
+        log(json.dumps({"phase": f"14f, rank {r['rank']} of {name} over NCCL, 640x192, "
+                                 f"{12 * data} items, bf16, captured vs graph=False",
+                        **{k: r[k] for k in r if k != "clock"}, "card": card}))
+        log(json.dumps({"phase": f"14g, rank {r['rank']} of {name}: host ms (median of 10), "
+                                 "device-busy ms (torch.profiler over 3 calls), idle share, "
+                                 "NCCL ms and kernels a call of the spatial train step, "
+                                 "and each path's peak beside the captured one-card step's",
+                        "clock": r["clock"], "one_card_captured_peak_bytes": one_peak,
+                        "captured_peak_over_one_card": r["clock"]["captured"]["peak_bytes"]
+                        / one_peak, "card": card}))
+    for r in reports:
+        who = f"phase 14 {name} rank {r['rank']}"
+        check(r["backend"] == "nccl", f"{who}: {r['backend']}")
+        lifted = r["rank"] // spatial == data - 1  # the last data row's group
+        for field, f in r["fields"].items():
+            for path in ("train", "k2"):
+                diffs = (f[path]["state_max_abs_diff"], f[path]["metrics_max_abs_diff"])
+                check(diffs == (0, 0), f"{who} {field}: captured {path} differs: {diffs}")
+            check(f["train"]["state_max_abs_diff_after_traced"] == 0,
+                  f"{who} {field}: the traced replay's state differs from eager")
+            check(f["eval"]["metrics_max_abs_diff"] == 0 and "abs_rel" in f["eval"]["keys"],
+                  f"{who} {field}: captured eval differs: {f['eval']}")
+            check(not any(f["plain_version_calls"].values()),
+                  f"{who} {field}: plain versions called {f['plain_version_calls']}")
+            w = f["warps_a_step"]
+            exact = {"smooth": 0, "halo 0": w, "mixed": 4 if lifted else 0}[field]
+            for path, k in (("train", 1), ("k2", 2), ("eval", 1)):
+                kernels = [0, 0, 0, 0, k * w] if path == "eval" else [0, 0, k * w, k * w, 0]
+                for form, (slab, ex) in (("", (0, k * w)),
+                                         ("_eager", (k * (w - exact), k * exact))):
+                    want = kernels + [slab, ex]
+                    got = f[f"{path}_counts{form}"]
+                    check(got == [want] * 3, f"{who} {field}: {path}{form} counts {got}, "
+                          f"expected {want} a call ({r['counts_order']})")
+            trace = f["trace"]
+            check(trace["nccl_launches"] > 0 and not trace["device_to_host_copies"]
+                  and not trace["synchronize_calls_in_call"]
+                  and trace["graph_launches_in_call"] >= 1,
+                  f"{who} {field}: the trace of one replay: {trace}")
+        for field in r["fields"]:
+            check(r["fields"][field]["train"]["losses"]
+                  == reports[(r["rank"] // spatial) * spatial]["fields"][field]["train"]["losses"],
+                  f"{who} {field}: the spatial group's losses differ")
+        # a rank holds its rows of the 12 items of its data row
+        peak = r["clock"]["captured"]["peak_bytes"]
+        check(peak <= 0.75 * one_peak, f"{who}: captured peak {peak} B above 0.75x "
+              f"the captured one-card step's {one_peak} B")
+    smooth = reports[0]["fields"]["smooth"]
+    return {"train": smooth["train_counts"][-1], "eval": smooth["eval_counts"][-1]}
+
+
+def phase_spatial_mesh_graphs(torch, card) -> dict:
+    """Phase 14f-g: the spatial meshes over NCCL, `{spatial: 2}` on cards 0
+    and 1 and, with 4 cards, `{data: 2, spatial: 2}` (`_spatial_graphs_rank`,
+    `check_spatial_graphs`). Returns rank 0's counts in one train and one
+    eval replay of `{spatial: 2}` on the smooth field."""
+    from monodepth_tpu_torch.parallel.run_steps import spawn
+
+    launches = {}
+    for data, spatial in [(1, 2)] + ([(2, 2)] if torch.cuda.device_count() >= 4 else []):
+        out_dir = os.path.join(PHASE14, f"data{data}_spatial{spatial}")
+        os.makedirs(out_dir, exist_ok=True)
+        log(f"phase 14: the captured steps on {{data: {data}, spatial: {spatial}}} over "
+            f"NCCL, fields {list(PHASE14_FIELDS)}")
+        t = time.perf_counter()
+        codes = spawn(_spatial_graphs_rank, data * spatial, (out_dir, data, spatial), 900)
+        check(codes == [0] * (data * spatial),
+              f"phase 14 {{data: {data}, spatial: {spatial}}} rank exit codes {codes}")
+        launches[data, spatial] = check_spatial_graphs(
+            [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+             for r in range(data * spatial)], card, data, spatial)
+        log(f"phase 14 {{data: {data}, spatial: {spatial}}}: "
+            f"{time.perf_counter() - t:.1f} s; {card}")
+    return launches[1, 2]
+
+
 def phase_mesh_graphs(torch, ws, card) -> dict | None:
     """Phase 14: the one-dispatch mesh steps, on 2 or more cards (NCCL puts
     one rank on each card; on one card the phase prints that it did not
     run and checks that `graph=True` refuses a gloo mesh). Returns rank
-    0's K2, K1 and K1-bwd launches in one replay of its eval, train and
-    K=2 graphs, or None on one card."""
+    0's K2, K1 and K1-bwd launches in one replay of its `{data: n}` eval
+    and train graphs, and both forms of K3 in one replay of the
+    `{spatial: 2}` train and eval graphs on the smooth field, or None on
+    one card."""
     import gc
     import shutil
 
@@ -3299,12 +3735,15 @@ def phase_mesh_graphs(torch, ws, card) -> dict | None:
           f"captured f32 mesh vs one card: loss rel {ref['loss_rel']} > {tol}")
     check(ref["eval_rel"]["loss"] <= PHASE7_F32_EVAL_RTOL,
           f"captured f32 mesh vs one card: eval loss rel {ref['eval_rel']['loss']}")
+    smooth = phase_spatial_mesh_graphs(torch, card)
     shutil.rmtree(PHASE14, ignore_errors=True)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s; {card}")
     r0 = reports[0]
     return {"warp_sample_fwd": r0["eval_launches"][-1][0],
             "warp_sample_fwd_grads": r0["train_launches"][-1][1],
-            "warp_sample_bwd_grid": r0["train_launches"][-1][2]}
+            "warp_sample_bwd_grid": r0["train_launches"][-1][2],
+            "warp_sample_fwd_grads_shifted": smooth["train"][3],
+            "warp_sample_fwd_shifted": smooth["eval"][4]}
 
 
 def _device_total(event) -> float:
@@ -3447,6 +3886,7 @@ def main() -> int:
     launches = phase_probe_path(torch, card)
     main_launches, step_ms, busy_ms = phase_main_path(torch, ws, card)
     launches.update(main_launches)
+    phase_spatial_gather(torch, ws, card)
     k3, k3_on, mesh_steps_launches = phase_multi_gpu(torch, card)
     launches.update(k3)
     loader_launches, (root, splits, _, train_lines), rates = phase_kitti(torch, ws, card)

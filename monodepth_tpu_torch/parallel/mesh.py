@@ -241,9 +241,10 @@ def agree_max(mesh: Mesh, value: float) -> float:
 
 def warm_collectives(mesh: Mesh) -> float:
     """Touch every group this rank's steps use (the world, the data and
-    spatial groups, the halo pairs) with tiny collectives, so connection
-    set-up happens before the first step. Returns the world size as summed
-    on the device."""
+    spatial groups, the halo pairs, and the spatial group's all-gather of
+    the exact warps) with tiny collectives, so connection set-up happens
+    before the first step and before any capture. Returns the world size
+    as summed on the device."""
     one = torch.ones(1, device=mesh.device)
     if not dist.is_initialized():
         return float(one)
@@ -254,6 +255,7 @@ def warm_collectives(mesh: Mesh) -> float:
             dist.all_reduce(one.clone(), group=group)
     if mesh.spatial > 1:
         exchange_halo(one.reshape(1, 1).expand(1, 2).contiguous(), 1, mesh)
+        all_gather_cat(one, mesh.spatial_group, 0)
     dist.barrier()
     return float(total)
 

@@ -24,14 +24,16 @@ the config with the other config flags. It writes OUT/rank<r>.json:
 the losses, the last train and the eval metrics, per-module gradient
 norms after the first step, a parameter checksum, the launches of K1, K2,
 both forms of K3 and K1-bwd (`grid_vjp`), the spatial warps on slabs
-and fallbacks, the rows of each feature level the rank ran on
+and the exact ones (`slab_warps`, `fallbacks`: a captured spatial step
+warps every warp exactly on the gathered rows), the rows of each
+feature level the rank ran on
 (`level_rows`: the depth encoder's input and its five outputs; on a
 spatial mesh H/n, H/2n, ... while the level rule holds) and, on a card,
 `peak_bytes`, the most memory the rank's steps held
 (`torch.cuda.max_memory_allocated`, reset before them).
 
-The steps are the step makers' defaults: CUDA graphs on a `{data: n}`
-mesh over NCCL (`graphed` in the report), eager elsewhere. A captured
+The steps are the step makers' defaults: CUDA graphs on a mesh over
+NCCL, spatial or not (`graphed` in the report), eager over gloo. A captured
 step's first call is its eager warm-up and its second captures and
 replays, so a captured run calls the eval step twice on the same batch
 and index and reports the second (`eval_calls`). The report also gives each train call's host

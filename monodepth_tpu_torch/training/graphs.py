@@ -9,11 +9,12 @@ the infer step (`:393`). Run eagerly, the port's train step issues some
 them. `GraphedStep` captures a step's body once per input signature and
 then replays it: one graph launch a call. The step makers of
 `training/step.py` use it on a card (`graph=None`) without a mesh and on
-a `{data: n}` mesh over NCCL, as JAX's `jax.jit` on a mesh is one
-dispatch with GSPMD's collectives inside. A spatial mesh stays eager: its
-warps branch on the host (`.item()` of the group's slab flag), which a
-graph cannot hold. So does a gloo mesh: gloo's collectives run on host
-tensors.
+any mesh over NCCL, as JAX's `jax.jit` on a mesh is one dispatch with
+GSPMD's collectives inside. A gloo mesh stays eager: gloo's collectives
+run on host tensors. A captured spatial mesh's warps take no branch: each
+gathers its group's rows and warps them exactly (`training.step`
+`_spatial_sampler`), where the eager step reads the group's slab flag on
+the host and JAX branches on the device with `lax.cond`.
 
 What a captured step needs, and where it is done:
 - static inputs: the inputs are a tree of dicts, lists and tensors (or
@@ -31,9 +32,10 @@ What a captured step needs, and where it is done:
 - Python side effects of the body happen once, while it is captured. What
   must change per call comes in as an input (the step makers pass the
   tie-break noise, drawn by the host's generators, and the learning
-  rates). After a capture the launch counters of the kernel wrappers and
-  `state.step` are put back, and every replay advances them by what the
-  capture recorded, so the counters go on counting kernel executions.
+  rates). After a capture the counters of `COUNTED` (the kernel
+  wrappers' launches, the spatial warps') and `state.step` are put back,
+  and every replay advances them by what the capture recorded, so the
+  counters go on counting kernel executions.
 - bound tensors: a graph holds the addresses of the tensors the body
   reads and updates in place (parameters, buffers, gradients, optimizer
   state). They are read at every call; if one moved since the key was
@@ -45,7 +47,7 @@ What a captured step needs, and where it is done:
   the events of eager collectives) cannot break a capture.
 - a capture that fails raises; nothing falls back to the eager step.
 
-Collectives (NCCL, a `{data: n}` mesh). A captured NCCL collective is a
+Collectives (NCCL). A captured NCCL collective is a
 node of the graph, issued on the process group's internal stream, which
 the capture forks from and joins back to the capturing stream; its
 communicator must exist before the capture, which the warm-up call makes
@@ -75,9 +77,12 @@ from monodepth_tpu_torch.ops.cuda import warp_sample as ws
 
 Tensor = torch.Tensor
 
-# the kernel wrappers of the steps, whose `.launches` a replay advances
-COUNTED = (ws.warp_sample, ws.warp_sample_grads, ws.warp_sample_shifted,
-           ws.warp_sample_grads_shifted, ws.grid_vjp)
+# the counters a replay advances, (owner, attribute): the kernel wrappers'
+# launches; `training.step` adds the spatial warps' calls
+COUNTED: List[Tuple[Any, str]] = [
+    (w, "launches") for w in (ws.warp_sample, ws.warp_sample_grads,
+                              ws.warp_sample_shifted, ws.warp_sample_grads_shifted,
+                              ws.grid_vjp)]
 
 
 def _signature(tree) -> Any:
@@ -135,7 +140,7 @@ class _Capture:
     graph: Any             # torch.cuda.CUDAGraph
     static: Any            # the input buffers
     out: Any               # the output buffers
-    launches: List[Tuple[Callable, int]]  # (wrapper, launches a replay)
+    counts: List[Tuple[Tuple[Any, str], int]]  # ((fn, attr), its count a replay)
     binding: List[int]     # the bound tensors' addresses
 
 
@@ -171,8 +176,8 @@ class GraphedStep:
             capture = self.captures[key] = self._capture(inputs, state)
         _copy_into(capture.static, inputs)
         capture.graph.replay()
-        for wrapper, n in capture.launches:
-            wrapper.launches += n
+        for (fn, attr), n in capture.counts:
+            setattr(fn, attr, getattr(fn, attr) + n)
         if state is not None:
             state.step += steps
         return _map(torch.clone, capture.out)
@@ -189,7 +194,8 @@ class GraphedStep:
 
     def _capture(self, inputs, state) -> _Capture:
         static = _empty(inputs, self.device)
-        counts = [w.launches for w in COUNTED]
+        counters = list(COUNTED)
+        before = [getattr(fn, attr) for fn, attr in counters]
         step = None if state is None else state.step
         graph = torch.cuda.CUDAGraph()
         try:
@@ -197,10 +203,10 @@ class GraphedStep:
                                   capture_error_mode="thread_local"):
                 out = self.body(static)
         finally:
-            launches = [(w, w.launches - n) for w, n in zip(COUNTED, counts)
-                        if w.launches != n]
-            for w, n in zip(COUNTED, counts):
-                w.launches = n
+            counts = [((fn, attr), getattr(fn, attr) - n)
+                      for (fn, attr), n in zip(counters, before) if getattr(fn, attr) != n]
+            for (fn, attr), n in zip(counters, before):
+                setattr(fn, attr, n)
             if state is not None:
                 state.step = step
-        return _Capture(graph, static, out, launches, _addresses(self.bound()))
+        return _Capture(graph, static, out, counts, _addresses(self.bound()))

@@ -32,14 +32,16 @@ On a card every step maker returns a step that runs as a CUDA graph
 (`graph=None`; `training.graphs.GraphedStep`), the counterpart of JAX's
 `jax.jit`: each call replays one captured graph. The first call of each
 input shape runs eagerly, the second captures. That holds without a mesh
-and on a `{data: n}` mesh over NCCL, whose graphs hold the synced batch
-norm, the gradient all-reduce, Adam and the metric reductions, as JAX's
-one dispatch on a mesh holds them. Three cases stay eager, and
-`graph=True` raises on them, naming the reason (`graph_refusal`): the
-CPU; a gloo mesh, whose collectives run on host tensors; and a spatial
-mesh, whose warps branch on the host (`_spatial_sampler` reads the
-group's agreed slab flag with `.item()`, where JAX branches on the device
-with `lax.cond`). `graph=False` keeps the eager step anywhere. The
+and on any mesh over NCCL, whose graphs hold the synced batch norm, the
+gradient all-reduce, Adam, the metric reductions and on a spatial mesh
+the halo exchanges, as JAX's one dispatch on a mesh holds them. A
+captured spatial step warps every warp exactly on its group's gathered
+rows (`_spatial_sampler` with `gather`), with the eager step's bits: the
+eager step branches on the host between K3 on the rank's slab and that
+exact warp, where JAX branches on the device with `lax.cond`. Two cases
+stay eager, and `graph=True` raises on them, naming the reason
+(`graph_refusal`): the CPU, and a gloo mesh, whose collectives run on
+host tensors. `graph=False` keeps the eager step anywhere. The
 graphed steps draw the tie-break noise ahead (`draw_tie_noise`; on a mesh
 the global batch's, cut to this rank's items), from the same generators,
 so their bits equal the eager steps'.
@@ -60,8 +62,9 @@ steps compute what the single-device step computes on the global batch:
   the whole mesh, the pose decoders' averages over the spatial group, the
   upsampled disparities, depths and grids of the rank's rows in the whole
   image's coordinates, each warp on a halo slab of the rank's sources
-  (`_spatial_sampler`, kernel K3; the exact `spatial_fallback` when a tap
-  leaves the slab or the kernels are off), and SSIM and the smoothness
+  (`_spatial_sampler`, kernel K3; the exact `spatial_fallback`, K3 on
+  the gathered rows, when a tap leaves the slab or in a captured step,
+  or the plain warp when the kernels are off), and SSIM and the smoothness
   with halo rows. Each rank's loss is its part of its data row's loss;
   the gradients are summed over the spatial ranks and averaged over the
   data ranks (`parallel.mesh.average_gradients`), so every rank ends
@@ -107,7 +110,7 @@ from monodepth_tpu_torch.parallel.mesh import (
     average_gradients,
     exchange_halo,
 )
-from monodepth_tpu_torch.training.graphs import GraphedStep
+from monodepth_tpu_torch.training.graphs import COUNTED, GraphedStep
 from monodepth_tpu_torch.training.state import TrainState, resolve_device
 
 Tensor = torch.Tensor
@@ -255,41 +258,51 @@ def slab_holds_taps(grid_rows: Tensor, row0: int, slab_rows: int,
     return ((rel >= 0) & (rel + 1 <= slab_rows - 1)).all()
 
 
+def _k3(slab: Tensor, grid_rows: Tensor, row0: int, full_height: int,
+        train: bool) -> Tensor:
+    """K3 on `slab` (global rows row0 ..): `WarpSampleShifted` (gradient to
+    the grid) with `train`, `warp_sample_shifted` without."""
+    if train:
+        return WarpSampleShifted.apply(slab, grid_rows, row0, full_height)
+    return warp_sample_shifted(slab, grid_rows, row0, full_height)
+
+
 def local_warp(own_rows: Tensor, from_prev: Tensor, from_next: Tensor,
                grid_rows: Tensor, s: int, full_height: int,
                train: bool) -> Tensor:
     """One rank's warp under a spatial mesh, with no collective: the slab
     [from_prev; own_rows; from_next] (halo rows from the neighbours, zeros
     at the image's edges) starts at global row s·Hl - halo, and K3 warps
-    it by `grid_rows` (this rank's output rows, global coordinates):
-    `WarpSampleShifted` (gradient to the grid) with `train`,
-    `warp_sample_shifted` without. Exact when `slab_holds_taps` holds.
+    it by `grid_rows` (this rank's output rows, global coordinates), with
+    `train` as `_k3`. Exact when `slab_holds_taps` holds.
     `local_warp.calls` counts it (on a CPU tensor K3 runs its plain
     version and counts no launch)."""
     local_warp.calls += 1
     halo = from_prev.shape[1]
     row0 = s * own_rows.shape[1] - halo
     slab = torch.cat([from_prev, own_rows, from_next], 1)
-    if train:
-        return WarpSampleShifted.apply(slab, grid_rows, row0, full_height)
-    return warp_sample_shifted(slab, grid_rows, row0, full_height)
+    return _k3(slab, grid_rows, row0, full_height, train)
 
 
-local_warp.calls = 0
-
-
-def spatial_fallback(own_rows: Tensor, grid_rows: Tensor, mesh: Mesh) -> Tensor:
-    """The exact warp of this rank's rows when a tap leaves the slab: the
-    spatial group's rows gathered, then the plain `grid_sample` (autograd
-    to the grid), as JAX's fallback. `spatial_fallback.calls` counts it."""
+def spatial_fallback(own_rows: Tensor, grid_rows: Tensor, mesh: Mesh,
+                     train: bool | None = None) -> Tensor:
+    """The exact warp of this rank's rows: the spatial group's rows
+    gathered, then K3 on that whole image (row0 = 0) by the rank's grid
+    rows, with `train` as `_k3`; with `train` None (the kernels off) the
+    plain `grid_sample` (autograd to the grid), as JAX's fallback.
+    `spatial_fallback.calls` counts it."""
     spatial_fallback.calls += 1
-    return grid_sample(all_gather_cat(own_rows, mesh.spatial_group, 1), grid_rows)
+    whole = all_gather_cat(own_rows, mesh.spatial_group, 1)
+    if train is None:
+        return grid_sample(whole, grid_rows)
+    return _k3(whole, grid_rows, 0, whole.shape[1], train)
 
 
-spatial_fallback.calls = 0
+local_warp.calls = spatial_fallback.calls = 0
+COUNTED.extend([(local_warp, "calls"), (spatial_fallback, "calls")])
 
 
-def _spatial_sampler(cfg: Config, mesh: Mesh):
+def _spatial_sampler(cfg: Config, mesh: Mesh, gather: bool = False):
     """The warp under a spatial mesh (counterpart of JAX's
     `_spatial_pallas_sampler`) -> sample(own_rows, grid_rows, train).
 
@@ -299,9 +312,19 @@ def _spatial_sampler(cfg: Config, mesh: Mesh):
     `batch_isend_irecv`), checks that every tap lies in its slab, agrees
     on that with the group (all_reduce MIN) and runs `local_warp` (K3).
     If any rank of the group has a tap outside, all take
-    `spatial_fallback`. The branch is a host decision: the agreed flag is
-    read with `.item()`, one device sync per warp. Sources carry no
-    gradient (the warp's contract), so the exchange has no backward."""
+    `spatial_fallback` (K3 on the gathered rows). The branch is a host
+    decision: the agreed flag is read with `.item()`, one device sync per
+    warp.
+
+    With `gather` (the captured steps, which cannot hold that branch)
+    every warp is `spatial_fallback`, with no exchange and no flag. It
+    gives the branch's bits: K3 reads the same taps and weights on the
+    slab and on the gathered image wherever the slab holds the taps. It
+    moves the group's rows in every warp where the slab moves 2·halo rows
+    (JAX's `lax.cond` gathers in its exact branch only; an NCCL all-gather
+    inside a CUDA graph's conditional node did not capture, ROADMAP §1).
+    Sources carry no gradient (the warp's contract), so neither the
+    exchange nor the gather has a backward."""
     n, H = mesh.spatial, cfg.height
     if H % n or H // n < 2:
         raise ValueError(f"height {H} does not split into rows of >= 2 over "
@@ -312,26 +335,27 @@ def _spatial_sampler(cfg: Config, mesh: Mesh):
 
     def sample(own_rows: Tensor, grid_rows: Tensor, train: bool) -> Tensor:
         own_rows = own_rows.detach()
-        from_prev, from_next = exchange_halo(own_rows, halo, mesh)
-        ok = slab_holds_taps(grid_rows.detach(), s * Hl - halo, Hl + 2 * halo,
-                             H).to(torch.int32).reshape(1)
-        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.spatial_group)
-        if ok.item():
-            return local_warp(own_rows, from_prev, from_next, grid_rows, s, H,
-                              train)
-        return spatial_fallback(own_rows, grid_rows, mesh)
+        if not gather:
+            from_prev, from_next = exchange_halo(own_rows, halo, mesh)
+            ok = slab_holds_taps(grid_rows.detach(), s * Hl - halo, Hl + 2 * halo,
+                                 H).to(torch.int32).reshape(1)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.spatial_group)
+            if ok.item():
+                return local_warp(own_rows, from_prev, from_next, grid_rows, s, H,
+                                  train)
+        return spatial_fallback(own_rows, grid_rows, mesh, train)
 
     return sample
 
 
 def _spatial_warp(cfg: Config, mesh: Mesh | None, sampler: Sampler | None,
-                  train: bool) -> Sampler | None:
+                  train: bool, gather: bool = False) -> Sampler | None:
     """The sampler of a spatial mesh's steps -> sample(source rows, grid
-    rows), both this rank's: K3 on the rank's halo slab
-    (`_spatial_sampler`) with the kernels on, the exact `spatial_fallback`
-    without. None without a spatial axis. Raises when the frames' rows do
-    not split into pieces of 3 (the stem's halo): the loss runs on the
-    rank's rows at full resolution."""
+    rows), both this rank's: K3 on the rank's halo slab or the gathered
+    rows (`_spatial_sampler`, with `gather` as there) with the kernels on,
+    the plain `spatial_fallback` without. None without a spatial axis.
+    Raises when the frames' rows do not split into pieces of 3 (the
+    stem's halo): the loss runs on the rank's rows at full resolution."""
     if mesh is None or mesh.spatial == 1:
         return None
     if sampler is not None:
@@ -343,7 +367,7 @@ def _spatial_warp(cfg: Config, mesh: Mesh | None, sampler: Sampler | None,
                              f"of >= 3 over spatial={mesh.spatial}")
     if not cfg.use_pallas:
         return lambda own_rows, grid_rows: spatial_fallback(own_rows, grid_rows, mesh)
-    spatial = _spatial_sampler(cfg, mesh)
+    spatial = _spatial_sampler(cfg, mesh, gather)
     return lambda own_rows, grid_rows: spatial(own_rows, grid_rows, train)
 
 
@@ -422,10 +446,6 @@ def graph_refusal(device: torch.device, mesh: Mesh | None) -> str | None:
         return f"a CUDA graph needs a CUDA device, not {device}"
     if mesh is None or mesh.size == 1:
         return None
-    if mesh.spatial > 1:
-        return (f"a spatial mesh (spatial={mesh.spatial}) branches on the host in "
-                "every warp (K3 on the slab or the exact fallback, agreed with "
-                ".item()), which a CUDA graph cannot capture")
     if mesh.backend != "nccl":
         return (f"a mesh over {mesh.backend or 'no process group'} cannot be "
                 "captured: gloo's collectives run on host tensors; NCCL's can")
@@ -544,11 +564,12 @@ def _check_optimizer(state: TrainState) -> None:
 
 
 def _train_runner(model: Monodepth, cfg: Config, device: torch.device,
-                  sampler: Sampler | None, mesh: Mesh | None):
+                  sampler: Sampler | None, mesh: Mesh | None, graphed: bool = False):
     """run(state, batch on the device, noise, lr=None) -> metrics: one
     train step's body (`noise` as `_forward` takes it; the lr tensor, when
-    given, replaces schedule(step): `TrainState.apply_gradients`)."""
-    sampler = _spatial_warp(cfg, mesh, sampler, train=True) or sampler
+    given, replaces schedule(step): `TrainState.apply_gradients`); with
+    `graphed`, the body a capture records (a spatial mesh's warps gather)."""
+    sampler = _spatial_warp(cfg, mesh, sampler, train=True, gather=graphed) or sampler
 
     def run(state: TrainState, batch: Dict[str, Tensor], noise, lr=None):
         model.train()
@@ -597,12 +618,12 @@ def _graphed_train(model: Monodepth, cfg: Config, device: torch.device,
                    sampler: Sampler | None, mesh: Mesh | None):
     """steps(state, batches, noises=None) -> [metrics of each step]: the K
     = len(batches) train steps of one call as one CUDA graph, a graph per
-    K and batch shape; on a `{data: n}` mesh with its collectives inside.
+    K and batch shape; on a mesh with its collectives inside.
     The graph is bound to the `TrainState` of the first call; another
     state raises. Each call draws the K steps' tie-break noise
     (`draw_tie_noise`, steps state.step + k) unless `noises` are given,
     and hands in the K learning rates schedule(state.step + k)."""
-    run = _train_runner(model, cfg, device, sampler, mesh)
+    run = _train_runner(model, cfg, device, sampler, mesh, graphed=True)
     bound = {}
     graphed = GraphedStep(lambda inputs: _train_calls(run, bound["state"], inputs),
                           device, lambda: _train_bound(model, bound["state"]))
@@ -648,9 +669,9 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
     ("train_step/forward", "train_step/backward", "train_step/optimizer")
     of the eager step and of a capture, not of a replay.
 
-    `graph` (module docstring): on a card, without a mesh or on an NCCL
-    `{data: n}` mesh, the step is a CUDA graph, bound to the `TrainState`
-    of its first call.
+    `graph` (module docstring): on a card, without a mesh or on a mesh
+    over NCCL, the step is a CUDA graph, bound to the `TrainState` of its
+    first call.
 
     With `mesh`, `batch` is this rank's piece (`parallel.shard_batch`),
     `noise` is the global batch's, the step runs on the mesh's device and
@@ -721,14 +742,15 @@ def make_eval_step(model: Monodepth, cfg: Config, device=None,
     the card. `graph` as `make_train_step`'s; the graph reads `state` for
     its noise keys only. With `mesh`, as `make_train_step`."""
     device = _step_device(device, mesh)
-    sampler = _spatial_warp(cfg, mesh, sampler, train=False) or sampler
+    graphed = _graphed(graph, device, mesh)
+    sampler = _spatial_warp(cfg, mesh, sampler, train=False, gather=graphed) or sampler
 
     def run(batch: Dict[str, Tensor], noise):
         model.eval()
         out, loss, _ = _forward(model, batch, noise, cfg, mesh, False, sampler)
         return _metrics(loss, out, batch, True, mesh)
 
-    if _graphed(graph, device, mesh):
+    if graphed:
         graphed = GraphedStep(lambda inputs: run(inputs["batch"], inputs["noise"]),
                               device, lambda: _model_bound(model))
 

@@ -68,7 +68,7 @@ def _wait(proc, what):
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
         raise AssertionError(f"{what}: past the 600 s deadline\n{err[-3000:]}")
-    assert proc.returncode == 0, (what, err[-3000:])
+    assert proc.returncode == 0, f"{what}:\n{err[-3000:]}"
     return out
 
 

@@ -3,9 +3,11 @@ backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
 against its plain PyTorch version, the launches of the eval and train
 steps (with --remat too), `prefetch_to_device`'s batches on the card,
 synced batch norm's own backward against autograd's, and the steps
-captured as CUDA graphs against the eager steps, on one card and on a
-2-rank `{data: 2}` mesh over NCCL (which needs 2 cards). Marked `gpu`;
-each test skips without a CUDA device (the mesh test without 2). This file imports neither jax nor the JAX package and uses no
+captured as CUDA graphs against the eager steps, on one card, on a
+2-rank `{data: 2}` and a `{spatial: 2}` mesh over NCCL (which need 2
+cards), and the captured steps' spatial warp (the gathered rows, K3) in a
+one-rank NCCL world. Marked `gpu`; each test skips without a CUDA device
+(the mesh tests without 2). This file imports neither jax nor the JAX package and uses no
 conftest fixture, so the host with the card runs it on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -951,3 +953,190 @@ def test_captured_mesh_steps_equal_eager_over_nccl(cuda, tmp_path, wiring):
         for a, b in zip(graphed["adam"], eager["adam"]):
             for key in a:
                 assert torch.equal(a[key], b[key]), (r, key)
+
+
+# --- a spatial mesh in one dispatch: every captured warp on the gathered rows
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train", [True, False])
+def test_captured_spatial_warp_equals_the_slab_on_one_card(cuda, train):
+    """The captured steps' spatial warp (`spatial_fallback`: all-gather,
+    then K3) captured in a one-rank NCCL world (its all-gather a copy),
+    64x96 b2, halo 16: a replay equals the eager slab warp and the eager
+    gather (max |diff| 0 over out and the grid's gradient), counts one
+    `spatial_fallback`, one K3 and, in the train form, one K1-bwd, and its
+    profile shows those kernels and no synchronize or device-to-host copy
+    (`chip_smoke.py` phase 6d at the headline shape)."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from monodepth_tpu_torch.ops.cuda import warp_sample as ws
+
+    store = dist.TCPStore("localhost", 0, 1, is_master=True, wait_for_workers=False)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        r = chip_smoke.spatial_gather_replays(torch, ws, train, B=2, H=64, W=96, halo=16)
+    finally:
+        dist.destroy_process_group()
+    assert all(v == 0 for d in r["max_abs_diff"].values() for v in d.values()), r
+    k3 = "warp_sample_grads_shifted" if train else "warp_sample_shifted"
+    want = {k: 0 for k in r["replay"]}
+    want.update({"spatial_fallback.calls": 1, f"{k3}.launches": 1,
+                 "grid_vjp.launches": int(train)})
+    assert r["replay"] == want, r
+    trace = r["trace"]
+    assert trace["graph_launches_in_call"] >= 1, trace
+    assert trace["warp_kernels"] == ({"warp_sample_fwd_grads_kernel": 1,
+                                      "warp_sample_bwd_grid_kernel": 1} if train
+                                     else {"warp_sample_fwd_kernel": 1}), trace
+    assert not trace["synchronize_calls_in_call"], trace
+    assert not trace["device_to_host_copies"], trace
+
+
+SPATIAL_FIELDS = {  # the 2-rank spatial card test: field -> Config fields
+    "smooth": {"spatial_halo": 16},   # the seeded init: every eager warp on its slab
+    "halo 0": {"spatial_halo": 0},    # every warp exact
+    # stereo_T lifted 0.5 up: the 4 "s" eager warps of a step exact, the 8
+    # others on their slabs
+    "mixed": {"spatial_halo": 16, "frame_ids": (0, -1, 1, "s")},
+    # each train warp's forward, its all-gather too, captured again in the
+    # backward
+    "smooth, --remat": {"spatial_halo": 16, "remat": True},
+}
+
+
+def _spatial_graph_rank(arg) -> None:
+    """One of 2 NCCL ranks, one card each (`run_steps.spawn` target, arg
+    (out_dir, a key of SPATIAL_FIELDS)): a `{spatial: 2}` mesh at 64x96,
+    global batch 4, bf16, cuDNN deterministic; 3 captured train calls, then
+    3 eval calls with ground truth, against the eager mesh steps from one
+    state; writes out_dir/rank<r>.pt with the metrics, the states, the
+    launches and the slab and exact warps of each path."""
+    import copy
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    import chip_smoke
+    from monodepth_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+        shard_batch,
+        warm_collectives,
+    )
+    from monodepth_tpu_torch.parallel.run_steps import host_batches
+    from monodepth_tpu_torch.training.step import local_warp, spatial_fallback
+
+    out_dir, field = arg
+    init_distributed("cuda", timeout_s=120)
+    mesh = make_mesh(1, 2, "cuda")
+    warm_collectives(mesh)
+    torch.backends.cudnn.deterministic = True
+    cfg = Config(**dict(GRAPH_CFG, batch=4, **SPATIAL_FIELDS[field]))
+    batches = chip_smoke.lifted_stereo(cfg, host_batches(cfg, 3, np.float32), 1)
+    pieces = [shard_batch(mesh, b) for b in batches]
+    state = create_state(cfg, build_model(cfg), steps_per_epoch=4)
+    twin = copy.deepcopy(state)
+    out = {"backend": dist.get_backend()}
+
+    def counts():
+        return _counts() + (warp_sample_grads_shifted.launches,
+                            warp_sample_shifted.launches, local_warp.calls,
+                            spatial_fallback.calls)
+
+    for name, s, graph in (("graphed", state, None), ("eager", twin, False)):
+        train = make_train_step(s.model, cfg, mesh=mesh, graph=graph)
+        evaluate = make_eval_step(s.model, cfg, mesh=mesh, graph=graph)
+        before = counts()
+        metrics = [train(s, {k: v for k, v in p.items() if k != "depth_gt"})
+                   for p in pieces]
+        metrics += [evaluate(s, p, i) for i, p in enumerate(pieces)]
+        torch.cuda.synchronize()
+        out[name] = {"metrics": [{k: v.cpu() for k, v in m.items()} for m in metrics],
+                     "counts": tuple(a - b for a, b in zip(counts(), before)),
+                     "state": {k: v.cpu() for k, v in s.model.state_dict().items()},
+                     "adam": [{k: v.cpu() for k, v in e.items()}
+                              for e in s.optimizer.state.values()],
+                     "step": s.step}
+        del train, evaluate  # no CUDA graph with NCCL inside outlives the group
+        gc.collect()
+    torch.save(out, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field", list(SPATIAL_FIELDS))
+def test_captured_spatial_steps_equal_eager_over_nccl(cuda, tmp_path, field):
+    """On a `{spatial: 2}` mesh over NCCL (a rank a card) the captured
+    train and eval steps, every warp on the group's gathered rows, equal
+    the eager mesh steps, which branch on the host: max |diff| 0 over
+    metrics, parameters, buffers and Adam state on both ranks, on a field
+    whose eager warps all stay in their slabs (also with --remat, whose
+    backward captures each train warp's gather again), one (halo 0) whose
+    warps all go exact, and one whose stereo warps alone go exact. Both
+    paths launch one K3 a warp and one K1-bwd a train warp, no K1 or K2;
+    every captured warp is exact, the eager ones as the field says."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards: NCCL puts one rank on each card")
+    from monodepth_tpu_torch.parallel.run_steps import spawn
+
+    cfg = Config(**dict(GRAPH_CFG, **SPATIAL_FIELDS[field]))
+    w = len(cfg.source_frame_ids) * len(cfg.scales)
+    exact = {"halo 0": w, "mixed": len(cfg.scales)}.get(field, 0)
+    r = 2 if cfg.remat else 1  # the train warps' forwards run twice
+    codes = spawn(_spatial_graph_rank, 2, (str(tmp_path), field), deadline_s=400)
+    assert codes == [0, 0], codes
+    # (K2, K1, K1-bwd, K3 train, K3 eval, slab warps, exact warps) over 3
+    # train and 3 eval calls
+    kernels = (0, 0, 3 * w, 3 * w * r, 3 * w)
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        graphed, eager = got["graphed"], got["eager"]
+        assert got["backend"] == "nccl"
+        assert graphed["counts"] == kernels + (0, 3 * w * (r + 1)), (rank, graphed["counts"])
+        assert eager["counts"] == kernels + (3 * (w - exact) * (r + 1),
+                                             3 * exact * (r + 1)), (rank, eager["counts"])
+        assert graphed["step"] == eager["step"] == 3
+        for a, b in zip(graphed["metrics"], eager["metrics"]):
+            assert a.keys() == b.keys()
+            for key in a:
+                assert torch.equal(a[key], b[key]), (rank, key)
+        assert "abs_rel" in graphed["metrics"][-1]
+        for key, value in graphed["state"].items():
+            assert torch.equal(value, eager["state"][key]), (rank, key)
+        for a, b in zip(graphed["adam"], eager["adam"]):
+            for key in a:
+                assert torch.equal(a[key], b[key]), (rank, key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["smooth", "wild", "nan"])
+def test_k3_on_the_gathered_rows_matches_plain(cuda, kind):
+    """K3 on the whole image (row0 0) at a {spatial: 2} rank's grid rows,
+    the exact warp's launch: within 1e-6 of its plain version, NaN where
+    it has NaN, equal to those rows of K1's whole warp, and on the smooth
+    field equal to its launch on the rank's halo-16 slab."""
+    rng = np.random.default_rng(7)
+    B, H, W, halo = 2, 64, 96, 16
+    img = torch.from_numpy(rng.uniform(size=(B, H, W, 3)).astype(np.float32)).to(cuda)
+    grid = torch.from_numpy(_field(rng, B, H, W, kind)).to(cuda)
+    whole = warp_sample_grads(img, grid)
+    pad = torch.zeros(B, halo, W, 3, device=cuda)
+    padded = torch.cat([pad, img, pad], 1)
+    for s in range(2):
+        rows = grid[:, s * 32:(s + 1) * 32].contiguous()
+        got = (warp_sample_shifted(img, rows, 0, H),) + warp_sample_grads_shifted(img, rows, 0, H)
+        want = (warp_sample_shifted_reference(img, rows, 0, H),) + \
+            warp_sample_grads_shifted_reference(img, rows, 0, H)
+        for a, b in zip(got, want):
+            assert torch.equal(a.isnan(), b.isnan())
+            assert float((a - b).nan_to_num().abs().max()) <= 1e-6, (kind, s)
+        for a, b in zip(got[1:], whole):
+            assert torch.equal(a.nan_to_num(), b[:, s * 32:(s + 1) * 32].nan_to_num())
+        if kind == "smooth":
+            slab = padded[:, s * 32:s * 32 + 32 + 2 * halo].contiguous()
+            on_slab = warp_sample_grads_shifted(slab, rows, s * 32 - halo, H)
+            for a, b in zip(on_slab, got[1:]):
+                assert torch.equal(a, b), s

@@ -21,6 +21,7 @@ capture itself runs only on a card: `tests/test_torch_gpu.py`, marked
 
 import copy
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -261,11 +262,11 @@ def test_signatures_key_shapes_dtypes_and_structure():
 
 def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
     """`graph=True` raises where a step cannot be captured, naming why: the
-    CPU (with or without a mesh), a gloo mesh and a spatial mesh (its
-    warps branch on the host); `graph=None` stays eager there. A
-    `{data: n}` mesh over NCCL captures, as does a mesh of one process
-    (no collective). The meshes are built directly, with no process
-    group."""
+    CPU (with or without a mesh) and a gloo mesh, spatial or not;
+    `graph=None` stays eager there. A mesh over NCCL captures, spatial or
+    not (a captured spatial step warps on the gathered rows, with no host
+    branch), as does a mesh of one process (no collective). The meshes are
+    built directly, with no process group."""
     cfg = _cfg()
     model = build_model(cfg, device="cpu")
     for make in (make_train_step, make_train_multi_step, make_eval_step,
@@ -279,9 +280,9 @@ def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
         "cpu_data": (Mesh(2, 1, 0, CPU, backend="gloo"), "needs a CUDA device"),
         "gloo": (Mesh(2, 1, 1, cuda, backend="gloo"), "over gloo cannot be captured"),
         "no_group": (Mesh(2, 1, 0, cuda), "over no process group"),
-        "spatial": (Mesh(1, 2, 0, cuda, backend="nccl"), "spatial mesh .* branches on "
-                                                           "the host"),
-        "data_spatial": (Mesh(2, 2, 3, cuda, backend="nccl"), "spatial mesh"),
+        "spatial_gloo": (Mesh(1, 2, 0, cuda, backend="gloo"), "over gloo cannot be "
+                                                                "captured"),
+        "data_spatial_gloo": (Mesh(2, 2, 3, cuda, backend="gloo"), "over gloo"),
     }
     for name, (mesh, reason) in refused.items():
         for make in (make_train_step, make_train_multi_step, make_eval_step):
@@ -291,6 +292,7 @@ def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
         assert not step_module._graphed(None, mesh.device, mesh), name
         assert not step_module._graphed(False, mesh.device, mesh), name
     for mesh in (Mesh(2, 1, 0, cuda, backend="nccl"), Mesh(4, 1, 3, cuda, backend="nccl"),
+                 Mesh(1, 2, 0, cuda, backend="nccl"), Mesh(2, 2, 3, cuda, backend="nccl"),
                  Mesh(1, 1, 0, cuda)):
         assert step_module.graph_refusal(cuda, mesh) is None
         assert step_module._graphed(None, cuda, mesh)
@@ -366,12 +368,13 @@ def _capturable_twin(state):
 
 
 @pytest.mark.parametrize("written_by", ["host_adam", "capturable_adam"])
-def test_checkpoint_restores_into_either_adam(tmp_path, written_by):
+def test_checkpoint_restores_into_either_adam(tmp_path, request, written_by):
     """A state file of the host Adam (every checkpoint before Adam became
     capturable on the card, and the CPU's now) and one in a capturable
     Adam's layout (its rate a tensor, `capturable` set) both restore into
     the host Adam and into a capturable one, each keeping its own
-    settings."""
+    settings. The ~0.3 GB state file goes when the test ends."""
+    request.addfinalizer(lambda: shutil.rmtree(tmp_path, ignore_errors=True))
     cfg = _cfg()
     batch = _batch(cfg)
     state = _state(cfg)

@@ -65,7 +65,7 @@ def runs(tmp_path_factory):
     try:
         for name, proc in procs.items():
             _, err = proc.communicate(timeout=660)
-            assert proc.returncode == 0, (name, err[-3000:])
+            assert proc.returncode == 0, f"{name}:\n{err[-3000:]}"
             world = len(list((tmp / name).glob("rank*.json")))
             out[name] = [json.loads((tmp / name / f"rank{r}.json").read_text())
                          for r in range(world)]

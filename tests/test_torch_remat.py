@@ -158,7 +158,7 @@ def mesh_runs(tmp_path_factory):
     try:
         for remat, (proc, out) in procs.items():
             _, err = proc.communicate(timeout=660)
-            assert proc.returncode == 0, (remat, err[-3000:])
+            assert proc.returncode == 0, f"remat {remat}:\n{err[-3000:]}"
             reports[remat] = json.loads((out / "rank0.json").read_text())
     finally:
         for proc, _ in procs.values():

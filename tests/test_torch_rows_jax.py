@@ -9,6 +9,7 @@ parity (`tests/test_torch_step.py`). One JAX compile."""
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -38,7 +39,9 @@ KW = dict(height=32, width=128, batch=2, scales=(0, 1, 2, 3), precision="f32",
 STEP, INDEX = 3, 1
 
 
-def test_spatial_eval_step_matches_jax(tmp_path):
+def test_spatial_eval_step_matches_jax(tmp_path, request):
+    # the worker's ~0.1 GB inputs go when the test ends
+    request.addfinalizer(lambda: shutil.rmtree(tmp_path, ignore_errors=True))
     cfg = Config(**KW)
     model = build_model(cfg, device="cpu")
     randomize_bn_stats(model, seed=2)

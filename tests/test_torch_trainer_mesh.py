@@ -38,6 +38,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import shutil
 import signal
 import subprocess
 import sys
@@ -102,7 +103,7 @@ def _wait(proc, what):
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
         raise AssertionError(f"{what}: past the 600 s deadline\n{err[-3000:]}")
-    assert proc.returncode == 0, (what, err[-3000:])
+    assert proc.returncode == 0, f"{what}:\n{err[-3000:]}"
     return out
 
 
@@ -111,14 +112,19 @@ def _reports(out_dir):
 
 
 @pytest.fixture(scope="module")
-def runs(tree, tmp_path_factory):
+def runs(tree, tmp_path_factory, request):
     """The mesh runs, the first three at once, beside the one-process
     Trainer in this process:
     - "mesh": the worker, 2 epochs straight, async checkpoints;
     - "split": `model_train` for 1 epoch, then `--resume` to 2;
     - "stop": the worker, 3 epochs, rank 1 signalled in the first;
-    - "one": the one-process Trainer, 2 epochs, per-step losses."""
+    - "one": the one-process Trainer, 2 epochs, per-step losses, its
+      state and exports written after the second epoch only (the tests
+      read those exports, and no state of it).
+    The runs' states (~0.3 GB each) and exports go when the module's
+    tests end."""
     base = tmp_path_factory.mktemp("mesh")
+    request.addfinalizer(lambda: shutil.rmtree(base, ignore_errors=True))
     worker = str(ROOT / "tests" / "torch_trainer_worker.py")
     procs = {
         "mesh": _torchrun(worker, str(base / "mesh_out"), "--graph_body",
@@ -129,7 +135,7 @@ def runs(tree, tmp_path_factory):
                           *_flags(tree, base, "stop", 3, "--ckpt_every", "5")),
     }
     try:
-        cfg = Config(**{**_cfg_fields(tree, base), "save": "one"})
+        cfg = Config(**{**_cfg_fields(tree, base), "save": "one", "ckpt_every": 2})
         one = Trainer(cfg, device="cpu")
         losses, step = [], one.train_step
         one.train_step = lambda state, batch: \

@@ -58,7 +58,7 @@ def runs(tmp_path_factory):
     try:
         for key, proc in procs.items():
             _, err = proc.communicate(timeout=660)
-            assert proc.returncode == 0, (key, err[-3000:])
+            assert proc.returncode == 0, f"{key}:\n{err[-3000:]}"
             out[key] = [json.loads((tmp / "_".join(key) / f"rank{r}.json").read_text())
                         for r in range(2)]
     finally:
