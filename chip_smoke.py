@@ -2,7 +2,6 @@
 """Build and run the PyTorch port on one CUDA card, and check it.
 
     python3 chip_smoke.py                # every phase below, on one card or more
-    python3 chip_smoke.py --step-clock   # this checkout's train and eval step times
 
 Run from a checkout of the repository on a host with one NVIDIA Hopper
 card and the CUDA toolkit. It exits non-zero, and prints no result, when
@@ -1013,7 +1012,8 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
     profile = profile_steps(
         torch, lambda i: train_step(state, batches[i % 3]),
         {"k1": "warp_sample_fwd_grads_kernel", "k1_bwd": "warp_sample_bwd_grid_kernel"},
-        ("train_step/forward", "train_step/backward", "train_step/optimizer",
+        ("train_step/decode", "train_step/networks_fwd", "train_step/loss_fwd",
+         "train_step/loss_bwd", "train_step/optimizer", "train_step/metrics",
          "WarpSampleBackward"))
     log(json.dumps({"train_step_profile": profile, "card": card}))
     return ({"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd}, step_ms,
@@ -3817,43 +3817,6 @@ def profile_steps(torch, step, kernels: dict, ranges=(), n: int = 3) -> dict:
     return out
 
 
-def step_clock(torch) -> dict:
-    """`--step-clock`: the host ms (median of 10) and device-busy ms
-    (`torch.profiler` over 3 calls) of the default train and eval steps of
-    the checkout beside this file, at the headline config (640x192, b12,
-    bf16, ResNet-18, `separate`), on `make_planar_scenes` batches, as one
-    JSON line. Copied into the root of an older checkout, it times that
-    checkout's steps (eager where the step makers take no `graph=`) with
-    the same measure."""
-    from monodepth_tpu_torch.config import Config
-    from monodepth_tpu_torch.data.synthetic import make_planar_scenes
-    from monodepth_tpu_torch.training.state import build_model, create_state
-    from monodepth_tpu_torch.training.step import make_eval_step, make_train_step
-
-    cfg = Config().validate()
-    B = cfg.batch
-    scenes = make_planar_scenes(3 * B, cfg.height, cfg.width, seed=0)
-    batches = [{k: scenes[k][i * B:(i + 1) * B] for k in ("frames", "jitter", "K", "inv_K")}
-               for i in range(3)]
-    model = build_model(cfg)
-    state = create_state(cfg, model, steps_per_epoch=100)
-    train_step, eval_step = make_train_step(model, cfg), make_eval_step(model, cfg)
-    out = {"package": os.path.join(HERE, "monodepth_tpu_torch"),
-           "config": "ResNet-18 separate 640x192 b12 bf16", "card": card_line()}
-    for name, fn in (("train", lambda i: train_step(state, batches[i % 3])),
-                     ("eval", lambda i: eval_step(state, batches[i % 3], i))):
-        for i in range(3):  # warm (and, captured, the warm-up and the capture)
-            fn(i)
-        ms = host_ms(torch, fn)
-        prof = profile_steps(torch, fn, {}, n=3)
-        busy = prof["device_busy_ms_per_step"]
-        out[name] = {"host_ms": ms, "device_busy_ms": busy,
-                     "idle_share": None if busy is None else 1 - busy / ms,
-                     "kernels_per_call": prof.get("kernels_per_step")}
-    print(json.dumps(out), flush=True)
-    return out
-
-
 def main() -> int:
     import torch
 
@@ -3861,9 +3824,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    if sys.argv[1:] == ["--step-clock"]:
-        step_clock(torch)
-        return 0
     from monodepth_tpu_torch.ops.cuda import warp_sample as ws
     from monodepth_tpu_torch.ops.cuda.build import build_libraries
     from monodepth_tpu_torch.config import Config
@@ -3873,7 +3833,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     t = time.perf_counter()
-    for name, output in build_libraries(["warp_sample", "probes"]).items():
+    for name, output in build_libraries(["warp_sample", "probes", "phase_mark"]).items():
         log(f"nvcc {name}:\n{output.strip()}")
     log(f"kernel build: {time.perf_counter() - t:.1f} s")
 

@@ -46,6 +46,9 @@ What a captured step needs, and where it is done:
   (the loader's, the async checkpoint writer's, NCCL's watchdog querying
   the events of eager collectives) cannot break a capture.
 - a capture that fails raises; nothing falls back to the eager step.
+- `torch.profiler` ranges: "graphed_step/warm_up", "graphed_step/capture"
+  (so a capture shows in any trace) and "graphed_step/stage", the copy of
+  a call's inputs into its buffers.
 
 Collectives (NCCL). A captured NCCL collective is a
 node of the graph, issued on the process group's internal stream, which
@@ -72,6 +75,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from monodepth_tpu_torch.ops.cuda import warp_sample as ws
 
@@ -165,7 +169,8 @@ class GraphedStep:
         `steps`: how far one call advances `state.step`."""
         key = (_signature(inputs), _backend_switches())
         if key not in self.warm:
-            out = self._warm_up(inputs)
+            with record_function("graphed_step/warm_up"):
+                out = self._warm_up(inputs)
             self.warm.add(key)
             return out
         capture = self.captures.get(key)
@@ -173,8 +178,10 @@ class GraphedStep:
             del self.captures[key], capture  # free its pool before capturing
             capture = None
         if capture is None:
-            capture = self.captures[key] = self._capture(inputs, state)
-        _copy_into(capture.static, inputs)
+            with record_function("graphed_step/capture"):
+                capture = self.captures[key] = self._capture(inputs, state)
+        with record_function("graphed_step/stage"):
+            _copy_into(capture.static, inputs)
         capture.graph.replay()
         for (fn, attr), n in capture.counts:
             setattr(fn, attr, getattr(fn, attr) + n)

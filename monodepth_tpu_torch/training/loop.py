@@ -11,7 +11,8 @@ as `python -m monodepth_tpu_torch.model_train` does under torchrun):
   the state is replicated from rank 0, and the mesh steps average the
   gradients and normalize batch norm over the global batch;
 - the batches of `Loader` go through `prefetch_to_device`, so the copies
-  to the card overlap the step that runs;
+  to the card overlap the step that runs; a step's wait for its batch is
+  the `torch.profiler` range "trainer/wait_data" (`--profile_dir`);
 - on one card, and on a mesh over NCCL (one rank a card), the train,
   validation and Eigen-infer calls are CUDA graphs (`training.step`,
   `graph=None`): each copies its batch into the graph's static inputs on
@@ -47,6 +48,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.dataset import KittiDataset
@@ -118,6 +120,17 @@ def load_pretrained(cfg: Config, model: Monodepth) -> Optional[str]:
 # dilutes late-epoch divergence, so these also get a running max
 # (reported as "<key>_max").
 _MAX_KEYS = ("warp_span",)
+
+
+def _waited(batches):
+    """`batches`, each taken inside the range "trainer/wait_data"."""
+    batches = iter(batches)
+    while True:
+        with record_function("trainer/wait_data"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 class _Meter:
@@ -295,7 +308,8 @@ class Trainer:
         images = 0
 
         K = cfg.steps_per_call if training else 1
-        batches = prefetch_to_device(loader.epoch(epoch), cfg.prefetch, self.device)
+        batches = _waited(prefetch_to_device(loader.epoch(epoch), cfg.prefetch,
+                                             self.device))
         if K > 1:
             # K consecutive batches a call; a trailing partial group is
             # dropped, as JAX's superbatches drop it (fixed shapes)

@@ -89,6 +89,7 @@ from monodepth_tpu_torch.losses.metrics import training_depth_metric
 from monodepth_tpu_torch.losses.reprojection import monodepth_loss, tie_noise
 from monodepth_tpu_torch.models.monodepth import Monodepth
 from monodepth_tpu_torch.models.resnet import BatchNorm2d, sync_batch_stats
+from monodepth_tpu_torch.ops.cuda.build import build_libraries
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
     SLAB,
     WarpSample,
@@ -111,6 +112,7 @@ from monodepth_tpu_torch.parallel.mesh import (
     exchange_halo,
 )
 from monodepth_tpu_torch.training.graphs import COUNTED, GraphedStep
+from monodepth_tpu_torch.training.phases import backward_boundary, mark, phase
 from monodepth_tpu_torch.training.state import TrainState, resolve_device
 
 Tensor = torch.Tensor
@@ -130,7 +132,8 @@ def _to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Tens
 
 def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
                    *, train: bool = False,
-                   sampler: Sampler | None = None) -> Dict[str, Any]:
+                   sampler: Sampler | None = None,
+                   loss: Callable[[Dict[str, Any]], Any] | None = None):
     """Forward the model and synthesize every (scale, source) warp.
 
     batch: frames uint8 [B, F, H, W, 3], jitter [B, 5], K and inv_K
@@ -144,12 +147,27 @@ def apply_and_warp(model: Monodepth, batch: Dict[str, Tensor], cfg: Config,
     the whole image's coordinates, each warp by `sampler` from the rank's
     source rows. Returns disps / warped / sources /
     target_pyr / depth0 / warp_span, all f32 (or the inputs' wider type)
-    whatever the network's precision."""
-    device = batch["frames"].device
-    color, color_aug = decode_frames(batch["frames"], batch["jitter"])
-    with _autocast(cfg, device):
-        disps, poses = model(color_aug)
+    whatever the network's precision; with `loss`, (those outputs,
+    loss(outputs)). The train step's phases decode, networks_fwd and
+    loss_fwd begin here (`training.phases`); `loss` runs inside loss_fwd,
+    and the networks' outputs pass `backward_boundary`, which marks where
+    their backward begins."""
+    frames = batch["frames"]
+    with phase("decode", frames):
+        color, color_aug = decode_frames(frames, batch["jitter"])
+    with phase("networks_fwd", frames):
+        with _autocast(cfg, frames.device):
+            outputs = model(color_aug)
+        disps, poses = backward_boundary(outputs)
+    with phase("loss_fwd", frames):
+        out = _synthesize(model, batch, cfg, color, disps, poses, train, sampler)
+        return out if loss is None else (out, loss(out))
 
+
+def _synthesize(model: Monodepth, batch: Dict[str, Tensor], cfg: Config, color: Tensor,
+                disps, poses, train: bool, sampler: Sampler | None) -> Dict[str, Any]:
+    """`apply_and_warp`'s outputs from the networks' (`color`: the
+    unaugmented frames)."""
     f32 = torch.promote_types(torch.float32, color.dtype)
     H, W = cfg.height, cfg.width
     source_ids = list(cfg.source_frame_ids)
@@ -399,6 +417,13 @@ def _rank_noise(noise, batch: Mapping[str, Tensor], cfg: Config, mesh: Mesh | No
     return {s: v[first:first + b, row0:row0 + h] for s, v in noise.items()}
 
 
+def _build_kernels(cfg: Config, device: torch.device) -> None:
+    """On a card, build the step's CUDA libraries ahead, all at once: the
+    phase marks and, with the kernels on, the warp's."""
+    if device.type == "cuda":
+        build_libraries(["phase_mark"] + (["warp_sample"] if cfg.use_pallas else []))
+
+
 def _step_device(device, mesh: Mesh | None) -> torch.device:
     if mesh is None:
         return resolve_device(device)
@@ -491,12 +516,13 @@ def _forward(model: Monodepth, batch: Dict[str, Tensor], noise, cfg: Config,
     is this rank's (`_rank_noise`), or a generator without a mesh."""
     with sync_batch_stats(model, _stats_group(mesh)), \
             rows.row_sharding(mesh, cfg.height):
-        out = apply_and_warp(model, batch, cfg, train=train, sampler=sampler)
-        loss, aux = monodepth_loss(
-            out["disps"], out["warped"], out["sources"], out["target_pyr"],
-            noise, scales=cfg.scales,
-            disp_smoothness=cfg.disp_smoothness,
-            use_automasking=cfg.use_automasking, choices=choices)
+        out, (loss, aux) = apply_and_warp(
+            model, batch, cfg, train=train, sampler=sampler,
+            loss=lambda out: monodepth_loss(
+                out["disps"], out["warped"], out["sources"], out["target_pyr"],
+                noise, scales=cfg.scales,
+                disp_smoothness=cfg.disp_smoothness,
+                use_automasking=cfg.use_automasking, choices=choices))
     return out, loss, aux
 
 
@@ -568,21 +594,27 @@ def _train_runner(model: Monodepth, cfg: Config, device: torch.device,
     """run(state, batch on the device, noise, lr=None) -> metrics: one
     train step's body (`noise` as `_forward` takes it; the lr tensor, when
     given, replaces schedule(step): `TrainState.apply_gradients`); with
-    `graphed`, the body a capture records (a spatial mesh's warps gather)."""
+    `graphed`, the body a capture records (a spatial mesh's warps gather).
+    Each phase of the step begins with its range and mark
+    (`training.phases`), in the order of `PHASES`."""
     sampler = _spatial_warp(cfg, mesh, sampler, train=True, gather=graphed) or sampler
+    _build_kernels(cfg, device)
 
     def run(state: TrainState, batch: Dict[str, Tensor], noise, lr=None):
         model.train()
-        with record_function("train_step/forward"):
-            out, loss, _ = _forward(model, batch, noise, cfg, mesh, True, sampler)
-        with record_function("train_step/backward"):
+        out, loss, _ = _forward(model, batch, noise, cfg, mesh, True, sampler)
+        with phase("loss_bwd", loss):
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-            if mesh is not None:
+        if mesh is not None:
+            with phase("grad_sync", loss):
                 average_gradients(model, mesh)
-        with record_function("train_step/optimizer"):
+        with phase("optimizer", loss):
             state.apply_gradients(lr)
-        return _metrics(loss, out, batch, cfg.train_gt_metrics, mesh)
+        with phase("metrics", loss):
+            metrics = _metrics(loss, out, batch, cfg.train_gt_metrics, mesh)
+        mark("end", loss.device)
+        return metrics
 
     return run
 
@@ -628,6 +660,7 @@ def _graphed_train(model: Monodepth, cfg: Config, device: torch.device,
     graphed = GraphedStep(lambda inputs: _train_calls(run, bound["state"], inputs),
                           device, lambda: _train_bound(model, bound["state"]))
 
+    @record_function("train_step/call")
     def steps(state: TrainState, batches, noises=None):
         _check_optimizer(state)
         if not bound:
@@ -664,10 +697,11 @@ def make_train_step(model: Monodepth, cfg: Config, device=None,
     optimizer (`create_state(cfg, model, steps_per_epoch=...)`). The
     tie-break noise comes from `tie_noise_generator(state.seed,
     state.step, None)` unless `noise` ({scale: [B, H, W, n_sources]
-    tensor}) is given. `device` defaults to the card. The forward,
-    backward and optimizer phases are `torch.profiler` ranges
-    ("train_step/forward", "train_step/backward", "train_step/optimizer")
-    of the eager step and of a capture, not of a replay.
+    tensor}) is given. `device` defaults to the card. Each phase of the
+    step (`training.phases.PHASES`) is a `torch.profiler` range
+    "train_step/<phase>" of the eager step and of a capture, and on a card
+    begins with an empty kernel `phase_mark_<phase>`, which every replay
+    runs too; a captured call is the range "train_step/call".
 
     `graph` (module docstring): on a card, without a mesh or on a mesh
     over NCCL, the step is a CUDA graph, bound to the `TrainState` of its
@@ -744,6 +778,7 @@ def make_eval_step(model: Monodepth, cfg: Config, device=None,
     device = _step_device(device, mesh)
     graphed = _graphed(graph, device, mesh)
     sampler = _spatial_warp(cfg, mesh, sampler, train=False, gather=graphed) or sampler
+    _build_kernels(cfg, device)
 
     def run(batch: Dict[str, Tensor], noise):
         model.eval()

@@ -2,7 +2,8 @@
 backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
 against its plain PyTorch version, the launches of the eval and train
 steps (with --remat too), `prefetch_to_device`'s batches on the card,
-synced batch norm's own backward against autograd's, and the steps
+synced batch norm's own backward against autograd's, the phase marks in
+a captured replay's trace, and the steps
 captured as CUDA graphs against the eager steps, on one card, on a
 2-rank `{data: 2}` and a `{spatial: 2}` mesh over NCCL (which need 2
 cards), and the captured steps' spatial warp (the gathered rows, K3) in a
@@ -788,6 +789,65 @@ def test_captured_train_steps_equal_eager(deterministic, k):
             assert torch.equal(a[key], b[key]), key
     steps = {float(e["step"]) for e in state.optimizer.state.values()}
     assert steps == {float(state.step)} == {3.0 * k}
+
+
+@pytest.mark.gpu
+def test_captured_replay_carries_the_phase_marks(cuda):
+    """The captured train step at 640x192 b2, handed batches on the card
+    and tie noise drawn ahead: its warm-up and capture are host ranges;
+    in a `torch.profiler` trace of two replays each `phase_mark_*` runs
+    once a step in the order of `PHASES` (no grad_sync without a mesh),
+    the device's work between each step's first and last mark covers its
+    busy time within 1% (the rest: the inputs staged and the outputs
+    cloned), and each call shows its "train_step/call" and
+    "graphed_step/stage" ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monodepth_tpu_torch.training.phases import PHASES
+    from monodepth_tpu_torch.training.step import draw_tie_noise
+
+    def union(spans):
+        total, reach = 0.0, float("-inf")
+        for start, end in sorted(spans):
+            if end > reach:
+                total += end - max(start, reach)
+                reach = end
+        return total
+
+    cfg = Config(height=192, width=640, batch=2, weight_init=False)
+    batches = []
+    for i in range(3):
+        scenes = make_planar_scenes(cfg.batch, cfg.height, cfg.width, seed=i)
+        batches.append({k: torch.as_tensor(scenes[k]).cuda()
+                        for k in ("frames", "jitter", "K", "inv_K")})
+    noises = [draw_tie_noise(cfg, b, 0, i, None, torch.device("cuda"))
+              for i, b in enumerate(batches)]
+    state = create_state(cfg, build_model(cfg), steps_per_epoch=4)
+    step = make_train_step(state.model, cfg)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(state, batches[0], noises[0])
+        step(state, batches[1], noises[1])
+    names = [e.name for e in prof.events()]
+    assert names.count("graphed_step/warm_up") == 1 and names.count("graphed_step/capture") == 1
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batches[2], noises[2])
+        step(state, batches[0], noises[0])
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    host = [e.name for e in prof.events() if e.device_type != cuda_type]
+    ranges = set(host)  # a host range also shows on the device timeline
+    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if e.device_type == cuda_type and e.name not in ranges)
+    marks = [d for d in device if d[2].startswith("phase_mark_")]
+    ops = [d[:2] for d in device if not d[2].startswith("phase_mark_")]
+    assert [m[2] for m in marks] == [f"phase_mark_{p}" for p in PHASES if p != "grad_sync"] * 2
+    windows = [(a[1], b[0]) for a, b in zip(marks, marks[1:]) if a[2] != "phase_mark_end"]
+    inside = union([(max(s, lo), min(e, hi)) for s, e in ops for lo, hi in windows
+                    if s < hi and e > lo])
+    assert inside == pytest.approx(union(ops), rel=0.01)
+    assert host.count("train_step/call") == 2 and host.count("graphed_step/stage") == 2
 
 
 @pytest.mark.gpu

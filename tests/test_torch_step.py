@@ -206,16 +206,14 @@ print("OK", train, loss)
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):
-    """With no card (in either mode), or alone in a directory,
-    chip_smoke.py exits non-zero and prints no result line."""
+    """With no card, or alone in a directory, chip_smoke.py exits
+    non-zero and prints no result line."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(ROOT / "chip_smoke.py", alone)
-    for cwd, script, args in ((ROOT, ROOT / "chip_smoke.py", []),
-                              (ROOT, ROOT / "chip_smoke.py", ["--step-clock"]),
-                              (tmp_path, alone, [])):
-        done = subprocess.run([sys.executable, str(script), *args], cwd=cwd,
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, alone)):
+        done = subprocess.run([sys.executable, str(script)], cwd=cwd,
                               capture_output=True, text=True, timeout=300,
                               env={**os.environ, "PYTHONPATH": ""})
         assert done.returncode != 0, done.stdout
