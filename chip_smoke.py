@@ -45,20 +45,33 @@ Phases, each fatal on failure:
    `kernel_probe.main()`, with the launch counts set to 0 just before and
    read just after (P-A, P-B, P-C once each, P-D 52 times): A-C equal to
    the plain versions on the tool's inputs, D's time finite;
+4b. the photometric term's kernels (`ops/cuda/photometric.py`) at the
+   main path's shape (12x192x640, 2 sources, automasking): the identity,
+   the minimum and the warps' gradients against the plain versions (the
+   card tests hold every source count, shape, tie and NaN rule), then each
+   launch's device time as in phase 3 (four rotating input sets, larger
+   than L2; the backward's cotangent expanded from a scalar, as the
+   mean's backward hands it in the step) beside its bound from the bytes
+   it must move, the launch floor and the plain composition's time,
+   forward and forward with backward; their `kernels` entries take their
+   launches on the main path (5a and 5b), in the Trainer (9c), the
+   wirings (10a) and the mesh Trainer (11a);
 5. the main path: `build_model(Config())` (ResNet-18, separate pose,
    640x192, batch 12, bf16) from a seeded init on `make_planar_scenes`,
    through the public entry points, each path with the launch counts set
    to 0 just before it and read just after:
    a. train: `create_state(..., steps_per_epoch=100)`, 3 train steps
       (losses finite, every parameter changed, 24 K1 and 24 K1-bwd
-      launches, no K2); then one step from a deep copy of the model and
+      launches, no K2; 3 photometric identity, 12 forward and 12 backward
+      launches, no call of the plain composition); then one step from a deep copy of the model and
       optimizer with the plain warp (forward and backward) and the same
       noise (loss rtol 1e-5, per-module gradient rel-L2 <= 1e-3, cuDNN
       deterministic for that pair); the step's time and profile (K1 and
       K1-bwd device ms, kernels per step, device ms under
       `WarpSampleBackward`);
    b. eval and infer, on the trained model: 3 eval steps and 3 infer
-      batches (24 K2 launches, no K1, running statistics unchanged); then
+      batches (24 K2 launches, no K1; 3 photometric identity, 12 forward
+      and no backward launches; running statistics unchanged); then
       one eval step again with the plain warp, loss rtol 1e-5;
 6. the shifted warp kernel K3 (`warp_sample_shifted`, eval form, and
    `warp_sample_grads_shifted`, train form):
@@ -115,7 +128,9 @@ Phases, each fatal on failure:
    with "s" where the batch is split and `shared` with "all" where the rows
    are, `phase_multi_gpu`), bf16 rtol 1e-4
    or the one card's own bf16-vs-f32 loss gap of this run and wiring where
-   larger; bf16 first-step gradients, module by module, rel-L2 <= the one
+   larger, after the first step at least 1e-3 (an Adam update carries
+   rounding: the one card's own rounding-only changes move its second
+   bf16 loss by up to 5.6e-4); bf16 first-step gradients, module by module, rel-L2 <= the one
    card's own bf16-vs-f32 gradient rel-L2 (at least 1e-3);
 8. the KITTI host data path and the Eigen CLI, on one card at the
    headline config (full width and depth, bf16), under `build/phase8/`:
@@ -157,7 +172,9 @@ Phases, each fatal on failure:
       `torch.use_deterministic_algorithms` names);
    c. the 2-epoch run with every kernel's count set to 0 just before
       `train()`: K1 and K1-bwd 8 per train step, K2 8 per validation
-      step, K3 and the probes 0, and no call of a plain version;
+      step, the photometric identity once a step, its forward 4 times a
+      step and its backward 4 times a train step, K3 and the probes 0,
+      and no call of a plain version;
    d. `--steps_per_call 2` against 1 (state max |diff| 0, records equal);
       then, with cuDNN as in phase 5a, on epochs of 24 train steps (the
       train lines 6 times over): the Trainer's own loader alone over one
@@ -179,8 +196,10 @@ Phases, each fatal on failure:
       the kernels and one from a deep copy with the plain warp (loss rtol
       1e-5, per-module gradient rel-L2 <= 1e-3, cuDNN deterministic for
       the pair), K1 and K1-bwd launched once per warp (8, or 12 with
-      "s") and no plain version called; one eval step, K2 8 or 12
-      launches, loss rel <= 1e-5 against the plain warp;
+      "s"), the photometric kernels 1, 4 and 4 times, and no plain
+      version called; one eval step, K2 8 or 12 launches, the
+      photometric kernels 1, 4 and 0 times, loss rel <= 1e-5 against the
+      plain warp;
    b. the mono+stereo train step's host ms (median of 10) and device-busy
       ms (torch.profiler) beside phase 5a's mono step;
    c. one ResNet-50 `separate` train step with the kernels: finite loss,
@@ -196,14 +215,17 @@ Phases, each fatal on failure:
    card (eager):
    a. the Trainer in 2 ranks (`run_steps.spawn`, `--eigen_every 1`), every
       count set to 0 just before `train()`: on every rank K1 and K1-bwd 8
-      per train step, K2 8 per validation step, the others 0, no plain
-      version called; rank 0 alone writes 2 states, 8 module exports and
+      per train step, K2 8 per validation step, the photometric kernels
+      as in 9c, the others 0, no plain version called; rank 0 alone writes 2 states, 8 module exports and
       2 records; an f32 mesh Trainer's losses equal an f32 one-process
-      Trainer's, the first two at rtol 1e-5 and all within the one
-      process's bf16-vs-f32 gap; the bf16 losses equal phase 9b's
-      one-process Trainer's, the first two at rtol 1e-4 and all within
-      that gap plus the one process's capturable-vs-host-rate Adam gap (a
-      one-process Trainer with the host-rate Adam here; at least 1e-4);
+      Trainer's, the first two at rtol 1e-5 and within the one process's
+      bf16-vs-f32 gap; the bf16 losses equal phase 9b's one-process
+      Trainer's, the first two at rtol 1e-4 and within that gap plus the
+      one process's capturable-vs-host-rate Adam gap (a one-process
+      Trainer with the host-rate Adam here; at least 1e-4); from the
+      third step f32 within 3e-3 and bf16 within 5e-3 where those gaps
+      are smaller (`PHASE11_LATER_RTOL`: Adam's updates carry rounding as
+      far as the one card's own rounding-only changes move it);
       the img/s of both beside phase 9d's;
    b. `python -m monodepth_tpu_torch.model_train` under torchrun (cuDNN
       deterministic) for 1 epoch and then `--resume true`: its epoch-2
@@ -915,6 +937,101 @@ def phase_probes(torch, dev, card):
     return out
 
 
+def phase_photometric(torch, dev, card) -> list:
+    """Phase 4b: the photometric term's kernels at the main path's shape
+    against their plain versions, and their device times. Returns their
+    `kernels` entries (launches filled in by the paths)."""
+    from monodepth_tpu_torch.losses.reprojection import plain_photometric_min
+    from monodepth_tpu_torch.ops.cuda import photometric as ph
+
+    B, H, W, F = 12, 192, 640, 2
+    npx = B * H * W
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs():
+        target = torch.rand(B, H, W, 3, generator=gen, device=dev)
+        warps = [0.6 * torch.rand(B, H, W, 3, generator=gen, device=dev) + 0.3 * target
+                 for _ in range(F)]
+        sources = [torch.rand(B, H, W, 3, generator=gen, device=dev) for _ in range(F)]
+        noise = 1e-5 * torch.randn(B, H, W, F, generator=gen, device=dev)
+        identity = ph.identity_errors(sources, target)
+        _, mask = ph.photometric_min(warps, target, identity, noise)
+        # the step's cotangent: the mean's backward expands a scalar
+        dmin = torch.full((), 1.0 / (npx * 4), device=dev).expand(B, H, W)
+        return warps, sources, target, noise, identity, mask, dmin
+
+    sets = [inputs() for _ in range(4)]
+    warps, sources, target, noise, identity, mask, dmin = sets[0]
+    plain_identity = torch.cat([ph.reprojection_error(s, target) for s in sources], -1)
+    id_err = float((identity - plain_identity).abs().max())
+    leaves = [w.clone().requires_grad_(True) for w in warps]
+    minimum, mask = ph.photometric_min(leaves, target, identity, noise)
+    minimum.backward(dmin)
+    plain_min, plain_mask = ph.photometric_min_reference(warps, target, identity, noise)
+    min_err = float((minimum.detach() - plain_min).abs().max())
+    mask_agree = float((mask == plain_mask).float().mean())
+    grad_err = max(
+        float((a.grad - b).abs().max()) / float(b.abs().max())
+        for a, b in zip(leaves, ph.photometric_min_grads_reference(
+            warps, target, mask, dmin, True)))
+    check(id_err <= 1e-6 and min_err <= 1e-6, f"photometric values: identity "
+          f"{id_err}, minimum {min_err} > 1e-6")
+    check(mask_agree > 0.999, f"photometric mask agrees on {mask_agree} of pixels")
+    check(grad_err <= 1e-5, f"photometric gradients: relative {grad_err} > 1e-5")
+
+    def plain_forward(w, s, t, n, i, *_):  # monodepth_loss's composition
+        return plain_photometric_min(w, t, i, n)[0]
+
+    def plain_both(w, s, t, n, i, m, d):
+        leaves = [x.detach().requires_grad_(True) for x in w]
+        return torch.autograd.grad(plain_forward(leaves, s, t, n, i), leaves, d)
+
+    fns = {"identity": lambda w, s, t, *_: ph.identity_errors(s, t),
+           "forward": lambda w, s, t, n, i, *_: ph.photometric_min(w, t, i, n),
+           "backward": lambda w, s, t, n, i, m, d: ph.photometric_min_grads(w, t, m, d, True),
+           "plain_identity": lambda w, s, t, *_: torch.cat(
+               [ph.reprojection_error(x, t) for x in s], -1),
+           "plain_forward": plain_forward,
+           "plain_forward_backward": plain_both}
+    us = {k: graph_ms(fn, sets, calls=20 if k.startswith("plain") else 40) * 1e3
+          for k, fn in fns.items()}
+    one = torch.zeros(1, device=dev)
+    floor_us = graph_ms(lambda t: t.add_(1), [(one,)]) * 1e3
+    # the least each launch moves a pixel: identity reads the sources and
+    # the target, writes the errors; forward reads the warps, the target,
+    # identity and noise, writes the minimum and the mask; backward reads
+    # the warps, the target and the mask (the cotangent is one float),
+    # writes gradients
+    bytes_px = {"identity": (F + 1) * 12 + F * 4,
+                "forward": (F + 1) * 12 + 2 * F * 4 + 4 + 1,
+                "backward": (F + 1) * 12 + 1 + F * 12}
+    report = {"photometric": {
+        k: {"us": us[k], "bound_us": npx * bytes_px[k] / MEM_RATE * 1e6,
+            "bytes_per_pixel": bytes_px[k],
+            "pct_of_bound": 100.0 * npx * bytes_px[k] / MEM_RATE * 1e6 / us[k]}
+        for k in bytes_px},
+        "plain_us": {k: us[f"plain_{k}"] for k in ("identity", "forward", "forward_backward")},
+        "launch_floor_us": floor_us,
+        "identity_max_abs_err": id_err, "min_max_abs_err": min_err,
+        "mask_agreement": mask_agree, "grad_max_rel_err": grad_err,
+        "timing": "device, CUDA graph of 40 calls (plain 20) x 10 replays, 4 rotating sets",
+        "cotangent": "expanded from a scalar (stride 0), as the step hands it",
+        "shape": f"{B}x{H}x{W}x3 f32, F={F}, automask", "card": card}
+    log(json.dumps(report))
+    plain = {"identity": "identity", "forward": "forward",
+             "backward": "forward_backward"}
+    errs = {"identity": id_err, "forward": min_err, "backward": grad_err}
+    return [{"name": name, "route": "cuda", "source": "monodepth_tpu_torch/csrc/photometric.cu",
+             "replaces": "none: the JAX package leaves SSIM+L1 and the minimum to XLA",
+             "launches": None, "max_abs_err" if k != "backward" else "max_rel_err": errs[k],
+             "ms": us[k] / 1e3, "plain_ms": report["plain_us"][plain[k]] / 1e3,
+             "plain_is": f"the plain composition's {plain[k].replace('_', ' and ')}",
+             "bound_ms": report["photometric"][k]["bound_us"] / 1e3, "bound_by": "memory"}
+            for k, name in (("identity", "photometric_identity"),
+                            ("forward", "photometric_min_fwd"),
+                            ("backward", "photometric_min_bwd"))]
+
+
 def phase_probe_path(torch, card) -> dict:
     """Phase 4, the probe tool's path: `kernel_probe.main()` on the card.
     Returns each probe kernel's launches in it."""
@@ -950,8 +1067,9 @@ def phase_probe_path(torch, card) -> dict:
 
 
 def phase_train(torch, ws, cfg, model, state, batches, card):
-    """Phase 5a. Returns the launches of K1 and K1-bwd in the 3 train
-    steps, the step's host ms and its device-busy ms."""
+    """Phase 5a. Returns the launches of K1, K1-bwd and the photometric
+    kernels in the 3 train steps, the step's host ms and its device-busy
+    ms."""
     import numpy as np
 
     from monodepth_tpu_torch.training.state import MODULES, module_grads
@@ -959,13 +1077,19 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
 
     train_step = make_train_step(model, cfg)
     before = [p.detach().clone() for p in model.parameters()]
-    ws.warp_sample.launches = 0
-    ws.warp_sample_grads.launches = 0
-    ws.grid_vjp.launches = 0
-    metrics = [train_step(state, b) for b in batches]
-    torch.cuda.synchronize()
+    photometric = photometric_wrappers()
+    for fn in (ws.warp_sample, ws.warp_sample_grads, ws.grid_vjp, *photometric.values()):
+        fn.launches = 0
+    with counted(plain_photometric()) as plain_calls:
+        metrics = [train_step(state, b) for b in batches]
+        torch.cuda.synchronize()
     k1, k2 = ws.warp_sample_grads.launches, ws.warp_sample.launches
     bwd = ws.grid_vjp.launches
+    ph_launches = {k: fn.launches for k, fn in photometric.items()}
+    want = photometric_launches(len(cfg.scales), len(batches), 0)
+    check(ph_launches == want and not any(plain_calls.values()),
+          f"photometric kernels launched {ph_launches} in {len(batches)} train steps, "
+          f"expected {want}; plain composition calls {plain_calls}")
     check(k1 == 24, f"warp_sample_grads launched {k1} times in 3 train steps, "
           "expected 24 (8 per step)")
     check(bwd == 24, f"grid_vjp launched {bwd} times in 3 train steps, "
@@ -980,7 +1104,7 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
     log(f"train losses {losses}, warp_span {[float(m['warp_span']) for m in metrics]}, "
         f"{changed} of {len(before)} parameter tensors changed, "
         f"warp_sample_grads launches {k1}, grid_vjp launches {bwd}, "
-        f"warp_sample launches {k2}")
+        f"warp_sample launches {k2}, photometric launches {ph_launches}")
 
     # the next step twice from the same state: kernel warp, plain warp
     # (forward and backward)
@@ -1016,13 +1140,14 @@ def phase_train(torch, ws, cfg, model, state, batches, card):
          "train_step/loss_bwd", "train_step/optimizer", "train_step/metrics",
          "WarpSampleBackward"))
     log(json.dumps({"train_step_profile": profile, "card": card}))
-    return ({"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd}, step_ms,
-            profile["device_busy_ms_per_step"])
+    return ({"warp_sample_fwd_grads": k1, "warp_sample_bwd_grid": bwd, **ph_launches},
+            step_ms, profile["device_busy_ms_per_step"])
 
 
 def phase_eval(torch, ws, cfg, model, state, batches, card):
     """Phase 5b, on the model the train steps left in train mode. Returns
-    K2's launches in the 3 eval steps and 3 infer batches."""
+    K2's launches in the 3 eval steps and 3 infer batches, and the
+    photometric kernels'."""
     import numpy as np
 
     from monodepth_tpu_torch.training.step import make_eval_step, make_infer_step
@@ -1032,12 +1157,19 @@ def phase_eval(torch, ws, cfg, model, state, batches, card):
     infer = make_infer_step(model, cfg)
     stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
 
-    ws.warp_sample.launches = 0
-    ws.warp_sample_grads.launches = 0
-    metrics = [eval_step(state, b, i) for i, b in enumerate(batches)]
-    depths = [infer(b["frames"][:, 0].astype(np.float32) / 255.0) for b in batches]
-    torch.cuda.synchronize()
+    photometric = photometric_wrappers()
+    for fn in (ws.warp_sample, ws.warp_sample_grads, *photometric.values()):
+        fn.launches = 0
+    with counted(plain_photometric()) as plain_calls:
+        metrics = [eval_step(state, b, i) for i, b in enumerate(batches)]
+        depths = [infer(b["frames"][:, 0].astype(np.float32) / 255.0) for b in batches]
+        torch.cuda.synchronize()
     launches, k1 = ws.warp_sample.launches, ws.warp_sample_grads.launches
+    ph_launches = {k: fn.launches for k, fn in photometric.items()}
+    want = photometric_launches(len(cfg.scales), 0, len(batches))
+    check(ph_launches == want and not any(plain_calls.values()),
+          f"photometric kernels launched {ph_launches} in {len(batches)} eval steps and "
+          f"infer batches, expected {want}; plain composition calls {plain_calls}")
 
     check(launches == 24, f"warp_sample launched {launches} times in 3 eval "
           "steps + 3 infer batches, expected 24 (8 per eval step)")
@@ -1053,7 +1185,8 @@ def phase_eval(torch, ws, cfg, model, state, batches, card):
         check(float(d.min()) >= 1 / 80.0 - 1e-6 and float(d.max()) <= 1e3 + 1e-3,
               "inferred disparity outside [1/80, 1/1e-3]")
     log(f"eval losses {losses}, warp_span {[float(m['warp_span']) for m in metrics]}, "
-        f"warp_sample launches {launches}, running statistics unchanged")
+        f"warp_sample launches {launches}, photometric launches {ph_launches}, "
+        "running statistics unchanged")
 
     # the same step with the plain warp, same noise (same seed, step, index)
     plain_step = make_eval_step(model, cfg, sampler=ws.warp_sample_reference)
@@ -1072,7 +1205,7 @@ def phase_eval(torch, ws, cfg, model, state, batches, card):
     log(json.dumps({"eval_step_profile": profile_steps(
         torch, lambda i: eval_step(state, batches[i % 3], i),
         {"k2": "warp_sample_fwd_kernel"}), "card": card}))
-    return launches
+    return {"warp_sample_fwd": launches, **ph_launches}
 
 
 SHIFTED = {"warp_sample_fwd_shifted": "warp_sample_shifted",
@@ -1436,6 +1569,14 @@ RUN_STEPS_AT_ONCE = 3  # phase 7's concurrent run_steps calls (6 filled one card
 PHASE7_F32_FIRST_RTOL = 2e-6
 PHASE7_F32_EVAL_RTOL = 1e-6
 PHASE7_SPLIT_F32_RTOL = {("posecnn_s", "batch"): 5e-5, ("shared_all", "rows"): 5e-5}
+# phase 7's bf16 loss rtol after the first step, where the one card's own
+# bf16-vs-f32 gap is smaller: one Adam update carries rounding into the
+# next bf16 loss as far as the one card's own rounding-only changes move
+# it (one ulp of K: up to 5.6e-4 with the photometric kernels, 1.4e-4
+# with the plain composition, `shared` with "all"; the kernels in place
+# of the plain composition: 3.9e-4; `tools/rounding_envelope.py`), so
+# about 1.8x the largest of those
+PHASE7_BF16_LATER_RTOL = 1e-3
 
 
 def _run_steps_start(run):
@@ -1531,7 +1672,9 @@ def phase_multi_gpu(torch, card):
     with "s") and 3.2e-5 (`shared` with "all";
     `monodepth_tpu_torch/tools/rounding_envelope.py`). bf16, the headline precision, is
     held to the one card's own bf16-vs-f32 gap of this run and wiring: the
-    loss at rtol max(1e-4, that gap), the first-step gradients of each
+    loss at rtol max(1e-4, that gap), after the first step at least
+    PHASE7_BF16_LATER_RTOL (the one card's own rounding-only changes move
+    its second bf16 loss by up to 5.6e-4), the first-step gradients of each
     module at rel-L2 max(1e-3, that module's gap). The split batch rounds
     its bf16 convolutions elsewhere, and bf16 keeps ~3 digits. Returns (the K3 launches of rank 0 of the last spatial mesh's
     `separate` bf16 run, what they were counted on, every kernel's launches
@@ -1573,11 +1716,13 @@ def phase_multi_gpu(torch, card):
                                                                ref["f32"]["losses"])]
             floor = max(floor_steps)
             # per step: f32 2e-6, then 1e-5 or PHASE7_SPLIT_F32_RTOL by what
-            # the mesh splits (docstring); bf16 the one card's gap
+            # the mesh splits (docstring); bf16 the one card's gap, then at
+            # least PHASE7_BF16_LATER_RTOL
             splits = ["batch"] * (data > 1) + ["rows"] * (spatial > 1)
             later = max(PHASE7_SPLIT_F32_RTOL.get((wiring, axis), 1e-5) for axis in splits)
             tol = {"f32": [PHASE7_F32_FIRST_RTOL] + [later] * (len(floor_steps) - 1),
-                   "bf16": [max(1e-4, floor)] * len(floor_steps)}
+                   "bf16": [max(1e-4, floor)] + [max(1e-4, floor, PHASE7_BF16_LATER_RTOL)]
+                   * (len(floor_steps) - 1)}
             # the precision's own gradient error on one card, and where the
             # mesh's bf16 gradients lie against the f32 ones
             one, mesh = ({p: grads[p][k] for p in grads} for k in ("one_device", "mesh"))
@@ -1611,7 +1756,9 @@ def phase_multi_gpu(torch, card):
             check(not over, f"{name} {wiring} bf16: gradient rel-L2 vs one card {over} "
                   f"above the one card's own bf16-vs-f32 gap {grad_tol}")
             if spatial > 1 and wiring == "separate":
-                # each spatial rank holds its rows' activations (PERF.md)
+                # each spatial rank holds its rows' activations (PERF.md);
+                # the reference, as the ranks, keeps the plain photometric
+                # composition (`run_steps._mesh_loss_path`)
                 peaks = [r["peak_bytes"] for r in reports["bf16"]]
                 check(max(peaks) <= 0.75 * ref["bf16"]["peak_bytes"],
                       f"{name} separate bf16: rank peaks {peaks} B above 0.75x the "
@@ -1643,7 +1790,8 @@ def phase_main_path(torch, ws, card):
     log(f"main path setup: {time.perf_counter() - t0:.1f} s "
         f"(scenes + model, {sum(p.numel() for p in model.parameters())} params)")
     launches, step_ms, busy_ms = phase_train(torch, ws, cfg, model, state, batches, card)
-    launches["warp_sample_fwd"] = phase_eval(torch, ws, cfg, model, state, batches, card)
+    for name, n in phase_eval(torch, ws, cfg, model, state, batches, card).items():
+        launches[name] = launches.get(name, 0) + n  # the photometric kernels: both paths
     launches.update(phase_spatial_path(torch, ws, cfg, state, batches[0], card))
     return launches, step_ms, busy_ms
 
@@ -2008,7 +2156,7 @@ def nondeterministic_ops(torch, trainer) -> list:
 
 
 def kernel_wrappers(ws) -> dict:
-    """{name in the kernels line: wrapper} for all eight kernels; each
+    """{name in the kernels line: wrapper} for every kernel; each
     wrapper counts its launches in `.launches`."""
     from monodepth_tpu_torch.ops.cuda import probes
 
@@ -2016,7 +2164,36 @@ def kernel_wrappers(ws) -> dict:
            "warp_sample_bwd_grid": ws.grid_vjp}
     out.update({name: getattr(ws, fn) for name, fn in SHIFTED.items()})
     out.update({name: getattr(probes, name) for name in PROBES})
+    out.update(photometric_wrappers())
     return out
+
+
+def photometric_wrappers() -> dict:
+    """{name in the kernels line: wrapper} for the photometric term's three
+    launches (`ops/cuda/photometric.py`)."""
+    from monodepth_tpu_torch.ops.cuda import photometric as ph
+
+    return {"photometric_identity": ph.identity_errors,
+            "photometric_min_fwd": ph.photometric_min,
+            "photometric_min_bwd": ph.photometric_min_grads}
+
+
+def photometric_launches(scales: int, train: int, evals: int) -> dict:
+    """The photometric kernels' launches in `train` train and `evals` eval
+    steps at `scales` scales with automasking: one identity launch a step,
+    one forward launch a scale, one backward launch a scale of a train
+    step."""
+    return {"photometric_identity": train + evals,
+            "photometric_min_fwd": scales * (train + evals),
+            "photometric_min_bwd": scales * train}
+
+
+def plain_photometric() -> list:
+    """The plain versions a path with the photometric kernels never calls:
+    `monodepth_loss`'s plain composition of the per-pixel minimum."""
+    from monodepth_tpu_torch.losses import reprojection
+
+    return [(reprojection, "plain_photometric_min")]
 
 
 class counted:
@@ -2175,7 +2352,8 @@ def phase_trainer(torch, ws, root, splits, train_lines, card, step_ms, loader_ra
         whole = Trainer(dataclasses.replace(cfg, epoch=2, save="whole"))
         whole_losses = record_losses(whole)
         plain = [(ws, "warp_sample_reference"), (ws, "warp_sample_grads_reference"),
-                 (ws, "grid_vjp_reference"), (step_module, "grid_sample")]
+                 (ws, "grid_vjp_reference"), (step_module, "grid_sample"),
+                 *plain_photometric()]
         wrappers = kernel_wrappers(ws)
         for fn in wrappers.values():
             fn.launches = 0
@@ -2189,7 +2367,8 @@ def phase_trainer(torch, ws, root, splits, train_lines, card, step_ms, loader_ra
         # K3 and the probes are not on this path: they must read 0
         expected = {name: 0 for name in wrappers}
         expected.update({"warp_sample_fwd_grads": 8 * steps,
-                         "warp_sample_bwd_grid": 8 * steps, "warp_sample_fwd": 8 * valid})
+                         "warp_sample_bwd_grid": 8 * steps, "warp_sample_fwd": 8 * valid,
+                         **photometric_launches(len(cfg.scales), steps, valid)})
         check(launches == expected, f"Trainer launches {launches}, expected {expected}")
         check(not any(plain_calls.values()), f"plain versions called: {plain_calls}")
         log(json.dumps({"path": "Trainer, 2 epochs of 4 train + 2 validation steps, "
@@ -2284,6 +2463,14 @@ def phase_trainer(torch, ws, root, splits, train_lines, card, step_ms, loader_ra
 
 
 PHASE11 = os.path.join(HERE, "build", "phase11")
+# phase 11a's loss rtol from the third step on (after two or more Adam
+# updates), where the gaps read in the run are smaller: on one card, 8
+# train steps move by up to 1.5e-3 in f32 and 3.8e-3 in bf16 under a
+# rounding-only change (the photometric kernels in place of the plain
+# composition, `shared` with "all"; `tools/rounding_envelope.py --steps 8`
+# reads up to 6.0e-4 and 8.9e-4): f32 twice its largest reading, bf16 its
+# largest plus the largest bf16-vs-f32 gap 11a has read (1.1e-3)
+PHASE11_LATER_RTOL = {"f32": 3e-3, "bf16": 5e-3}
 MESH_EVAL_BATCH = 23  # each of 2 ranks sweeps 23 of the 46 test lines
 
 
@@ -2335,7 +2522,8 @@ def _mesh_trainer_rank(args) -> None:
     for fn in wrappers.values():
         fn.launches = 0
     plain = [(ws, "warp_sample_reference"), (ws, "warp_sample_grads_reference"),
-             (ws, "grid_vjp_reference"), (step_module, "grid_sample")]
+             (ws, "grid_vjp_reference"), (step_module, "grid_sample"),
+             *plain_photometric()]
     with counted(plain) as plain_calls:
         trainer.train()
         torch.cuda.synchronize()
@@ -2423,7 +2611,8 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
     steps, valid = (2 * n for n in reports[0]["steps"])
     expected = {name: 0 for name in kernel_wrappers(ws)}
     expected.update({"warp_sample_fwd_grads": 8 * steps, "warp_sample_bwd_grid": 8 * steps,
-                     "warp_sample_fwd": 8 * valid})
+                     "warp_sample_fwd": 8 * valid,
+                     **photometric_launches(len(Config(**fields).scales), steps, valid)})
     for r in reports:
         check((steps, valid, r["local_batch"]) == (8, 4, 6) and r["backend"] == backend,
               f"rank {r['rank']}: {steps} train, {valid} validation steps, local batch "
@@ -2454,7 +2643,8 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
     #   host-rate Adam that gap was first read under (a one-process bf16
     #   Trainer with the host-rate Adam here). Adam's early steps (lr·sign(g)
     #   where |g| is small) amplify a last-bit difference to ~1e-3 in a few
-    #   steps, so a trajectory's rounding gap is a reading, not a law
+    #   steps, so a trajectory's rounding gap is a reading, not a law:
+    #   from the third step on both are held at least to PHASE11_LATER_RTOL
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         f32 = Trainer(Config(**dict(fields, save="one_f32", precision="f32",
@@ -2498,6 +2688,8 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
     gap = max(rels(one, f32_losses))
     adam_gap = max(rels(one, host_losses))
     tol = max(1e-4, gap + adam_gap)
+    later = {"f32": max(gap, PHASE11_LATER_RTOL["f32"]),
+             "bf16": max(tol, PHASE11_LATER_RTOL["bf16"])}
     log(json.dumps({"phase": f"11a, mesh Trainer over {backend}, 2 epochs of 4 + 2 steps, "
                              "640x192 b12 bf16",
                     "mesh_losses": mesh, "one_process_losses": one,
@@ -2506,7 +2698,7 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
                     "loss_rel": rel, "f32_mesh_vs_one_process_loss_rel": rel_f32,
                     "one_card_bf16_vs_f32_loss_rel": gap,
                     "one_card_capturable_vs_host_rate_adam_loss_rel": adam_gap,
-                    "loss_rtol": tol,
+                    "loss_rtol": tol, "loss_rtol_from_the_third_step": later,
                     "launches_per_rank": [r["launches"] for r in reports],
                     "writes": [r["writes"] for r in reports],
                     "mesh_train_img_per_s": [r["train"]["img_per_sec"] for r in records],
@@ -2522,10 +2714,14 @@ def phase_mesh_trainer(torch, ws, root, splits, card, one_process) -> dict:
           "mesh and one-process runs of 8 steps")
     check(max(rel_f32[:2]) <= 1e-5,
           f"f32 mesh losses vs one process, first two steps: rel {rel_f32[:2]} > 1e-5")
-    check(max(rel_f32) <= gap, f"f32 mesh losses vs one process: rel {rel_f32} > {gap}")
+    check(max(rel_f32[:2]) <= gap and max(rel_f32[2:]) <= later["f32"],
+          f"f32 mesh losses vs one process: rel {rel_f32} > {gap}, from the third step "
+          f"{later['f32']}")
     check(max(rel[:2]) <= 1e-4,
           f"mesh losses vs one process, first two steps: rel {rel[:2]} > 1e-4")
-    check(max(rel) <= tol, f"mesh losses vs one process: rel {rel} > {tol}")
+    check(max(rel[:2]) <= tol and max(rel[2:]) <= later["bf16"],
+          f"mesh losses vs one process: rel {rel} > {tol}, from the third step "
+          f"{later['bf16']}")
 
     # 11b: model_train under torchrun (cuDNN deterministic, as 11a), 1 epoch
     # and a resume, against 11a
@@ -2731,7 +2927,8 @@ def phase_wirings(torch, ws, card, step5a_ms, busy5a_ms) -> dict:
     """Phase 10: the other pose wirings and mono+stereo at the headline
     config (640x192 b12 bf16, ResNet-18, full width and depth, seeded).
     Returns every kernel's launches in 10a's kernel runs (counts set to 0
-    just before, read just after; the plain-warp twins launch none)."""
+    just before, read just after; the plain-warp twins launch no warp
+    kernel, and the photometric kernels as the kernel runs do)."""
     import numpy as np
 
     from monodepth_tpu_torch.config import Config
@@ -2742,7 +2939,8 @@ def phase_wirings(torch, ws, card, step5a_ms, busy5a_ms) -> dict:
     t0 = time.perf_counter()
     wrappers = kernel_wrappers(ws)
     plain = [(ws, "warp_sample_reference"), (ws, "warp_sample_grads_reference"),
-             (ws, "grid_vjp_reference"), (step_module, "grid_sample")]
+             (ws, "grid_vjp_reference"), (step_module, "grid_sample"),
+             *plain_photometric()]
     for fn in wrappers.values():
         fn.launches = 0
     stereo = None
@@ -2793,12 +2991,16 @@ def phase_wirings(torch, ws, card, step5a_ms, busy5a_ms) -> dict:
                         "plain_version_calls": {**train_calls, **eval_calls},
                         "card": card}))
         expected = {k: 0 for k in wrappers}
+        scales = len(cfg.scales)
         check(train_launches == dict(expected, warp_sample_fwd_grads=warps,
-                                     warp_sample_bwd_grid=warps),
+                                     warp_sample_bwd_grid=warps,
+                                     **photometric_launches(scales, 1, 0)),
               f"{name}: train step launches {train_launches}, expected {warps} of K1 "
-              "and of K1-bwd")
-        check(eval_launches == dict(expected, warp_sample_fwd=warps),
-              f"{name}: eval step launches {eval_launches}, expected {warps} of K2")
+              f"and of K1-bwd, {photometric_launches(scales, 1, 0)}")
+        check(eval_launches == dict(expected, warp_sample_fwd=warps,
+                                    **photometric_launches(scales, 0, 1)),
+              f"{name}: eval step launches {eval_launches}, expected {warps} of K2, "
+              f"{photometric_launches(scales, 0, 1)}")
         check(not any(train_calls.values()) and not any(eval_calls.values()),
               f"{name}: plain versions called: {train_calls} {eval_calls}")
         check(np.isfinite([loss_k, eval_k]).all(), f"{name}: non-finite loss")
@@ -3833,7 +4035,8 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     t = time.perf_counter()
-    for name, output in build_libraries(["warp_sample", "probes", "phase_mark"]).items():
+    for name, output in build_libraries(["warp_sample", "probes", "phase_mark",
+                                         "photometric"]).items():
         log(f"nvcc {name}:\n{output.strip()}")
     log(f"kernel build: {time.perf_counter() - t:.1f} s")
 
@@ -3843,6 +4046,7 @@ def main() -> int:
                phase_grid_vjp_kernel(torch, dev, ws, Config(), card),
                *phase_probes(torch, dev, card)]
     entries += phase_shifted_kernels(torch, dev, ws, Config(), card, entries)
+    entries += phase_photometric(torch, dev, card)
     launches = phase_probe_path(torch, card)
     main_launches, step_ms, busy_ms = phase_main_path(torch, ws, card)
     launches.update(main_launches)

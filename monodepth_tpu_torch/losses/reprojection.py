@@ -20,7 +20,7 @@ ranks' parts add up to it, and the noise handed in is this rank's rows.
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Union
+from typing import Any, Mapping, Sequence, Union
 
 import torch
 
@@ -46,6 +46,18 @@ def min_reprojection(reproj: Tensor, identity: Tensor | None,
     return combined.amin(-1)
 
 
+def plain_photometric_min(warps: Sequence[Tensor], target: Tensor,
+                          identity: Tensor | None, noise: Tensor | None):
+    """One scale's photometric term as plain torch: `reprojection_error` of
+    each warp against `target`, and the per-pixel minimum over them and
+    the noisy identity (`min_reprojection`) -> (minimum [B, H, W], the
+    channels [B, H, W, n] it is taken over, identity channels first). The
+    specification the photometric kernels (`ops.cuda.photometric`) keep."""
+    reproj = torch.cat([reprojection_error(w, target) for w in warps], -1)
+    combined = reproj if identity is None else torch.cat([identity + noise, reproj], -1)
+    return min_reprojection(combined, None, None), combined
+
+
 def tie_noise(generator: torch.Generator, shape, dtype: torch.dtype,
               device) -> Tensor:
     """One scale's tie-break noise, 1e-5·N(0, 1), as `monodepth_loss`
@@ -65,10 +77,15 @@ def monodepth_loss(
     disp_smoothness: float = 1e-3,
     use_automasking: bool = True,
     choices: bool = False,
+    photometric: Any = None,
 ) -> tuple[Tensor, dict]:
     """Total loss and {photometric/s, smooth/s} terms; with `choices` also
     {choice/s: [B, H, W] int64}, the channel each pixel's minimum takes
-    (the identity channels first, then the reprojections).
+    (the identity channels first, then the reprojections). `photometric`
+    computes each scale's minimum instead of `plain_photometric_min`: the
+    module `ops.cuda.photometric` (its `identity_errors`,
+    `photometric_min` and `first_choice`), which the train and eval steps
+    pass with the kernels on; its values are the composition's.
 
     disp_pyramid:   scale -> [B, H/2^s, W/2^s, 1] sigmoid disparity
     warped_colors:  scale -> per-source full-res warps [B, H, W, 3]
@@ -79,7 +96,9 @@ def monodepth_loss(
     target = color_pyramid[0]
 
     identity = None
-    if use_automasking:
+    if use_automasking and photometric is not None:
+        identity = photometric.identity_errors(source_colors, target)
+    elif use_automasking:
         identity = torch.cat(
             [reprojection_error(src, target) for src in source_colors], -1)
 
@@ -90,8 +109,6 @@ def monodepth_loss(
     aux = {}
     total = 0.0
     for scale in scales:
-        reproj = torch.cat(
-            [reprojection_error(w, target) for w in warped_colors[scale]], -1)
         tie = None
         if identity is not None:
             if isinstance(noise, torch.Generator):
@@ -99,19 +116,24 @@ def monodepth_loss(
                                 identity.device)
             else:
                 tie = noise[scale].to(identity.device, identity.dtype)
-        photometric = rows.loss_mean(min_reprojection(reproj, identity, tie))
-        if choices:
-            combined = reproj if identity is None \
-                else torch.cat([identity + tie, reproj], -1)
-            aux[f"choice/{scale}"] = combined.detach().argmin(-1)
+        if photometric is not None:
+            minimum, mask = photometric.photometric_min(
+                warped_colors[scale], target, identity, tie)
+            if choices:
+                aux[f"choice/{scale}"] = photometric.first_choice(mask)
+        else:
+            minimum, combined = plain_photometric_min(
+                warped_colors[scale], target, identity, tie)
+            if choices:
+                aux[f"choice/{scale}"] = combined.detach().argmin(-1)
+        term = rows.loss_mean(minimum)
 
         with rows.level(levels[scale]):
             smooth = smooth_loss(disp_pyramid[scale], color_pyramid[scale])
         if rows.current() is not None and not levels[scale]:
             smooth = smooth / rows.current().n
-        aux[f"photometric/{scale}"] = photometric
+        aux[f"photometric/{scale}"] = term
         aux[f"smooth/{scale}"] = smooth
-        total = total + (photometric
-                         + disp_smoothness * smooth / (2 ** scale))
+        total = total + (term + disp_smoothness * smooth / (2 ** scale))
 
     return total / len(scales), aux

@@ -53,10 +53,13 @@ and depth metrics, the reference's own `peak_bytes`, and
 another channel on the mesh than on one device in the first train
 step's forward ("minimum"), those whose automask choice (an identity
 channel or a reprojection) differs ("automask"), and the pixels in all.
-Both peaks start from the same holding, the model's parameters and
-buffers on the card: rank 0 keeps its copy of the initial model on the
-host, and moves the mesh run's model and gradients off the card, and
-lets its Adam state go, before the reference starts. `--f64` runs the
+The reference takes its mesh's loss path: on a card, the photometric
+kernels for a data mesh, the plain composition for a spatial one, as its
+ranks do (`_mesh_loss_path`). Both peaks start from the same holding,
+the model's parameters and buffers on the card: rank 0 keeps its copy
+of the initial model on the host, and moves the mesh run's model and
+gradients off the card, and lets its Adam state go, before the
+reference starts. `--f64` runs the
 model and the batches in float64 (the CPU tests), where those
 differences are rounding only. `--save-grads` keeps both runs'
 first-step gradients in OUT/grads.pt, so that runs in two precisions
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import contextlib
 import gc
 import json
 import multiprocessing
@@ -91,6 +95,7 @@ from monodepth_tpu_torch.parallel.mesh import (
     shard_batch,
     warm_collectives,
 )
+from monodepth_tpu_torch.training import step as step_module
 from monodepth_tpu_torch.training.state import (
     build_model,
     create_state,
@@ -249,6 +254,21 @@ def choice_flips(cfg: Config, mesh_choices, one_choices) -> dict:
             "pixels": int(next(iter(one_choices.values())).numel())}
 
 
+@contextlib.contextmanager
+def _mesh_loss_path(spatial: int):
+    """Within: the one-device steps take the loss path of a mesh with
+    `spatial` row pieces. A spatial mesh's ranks keep the plain photometric
+    composition (`training.step._photometric`), so its reference does too:
+    both run one program, and their losses and peaks compare."""
+    kernels = step_module._photometric
+    if spatial > 1:
+        step_module._photometric = lambda cfg, mesh, device: None
+    try:
+        yield
+    finally:
+        step_module._photometric = kernels
+
+
 def _reference(cfg: Config, args, batches, mesh_report: dict,
                mesh_grads: Dict[str, torch.Tensor], mesh_sd, device,
                model, mesh_choices):
@@ -396,9 +416,10 @@ def run_rank(args) -> None:
         if device.type == "cuda":
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        one_device, report["reference"] = _reference(
-            cfg, args, batches, report, grads, mesh_sd, device, initial.to(device),
-            choices)
+        with _mesh_loss_path(mesh.spatial):
+            one_device, report["reference"] = _reference(
+                cfg, args, batches, report, grads, mesh_sd, device, initial.to(device),
+                choices)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         report["reference_seconds"] = time.perf_counter() - t0

@@ -77,6 +77,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import torch
 from torch.profiler import record_function
 
+from monodepth_tpu_torch.ops.cuda import photometric as ph
 from monodepth_tpu_torch.ops.cuda import warp_sample as ws
 
 Tensor = torch.Tensor
@@ -86,7 +87,8 @@ Tensor = torch.Tensor
 COUNTED: List[Tuple[Any, str]] = [
     (w, "launches") for w in (ws.warp_sample, ws.warp_sample_grads,
                               ws.warp_sample_shifted, ws.warp_sample_grads_shifted,
-                              ws.grid_vjp)]
+                              ws.grid_vjp, ph.identity_errors, ph.photometric_min,
+                              ph.photometric_min_grads)]
 
 
 def _signature(tree) -> Any:

@@ -23,6 +23,11 @@ source frame and scale: 8 for frames (0, -1, 1) and 4 scales, 12 with
 "s") go through the CUDA kernels when `cfg.use_pallas` is on: `warp_sample` in the eval step, `WarpSample` (forward with the tap
 differences, gradient with respect to the grid) in the train step.
 Otherwise they are the plain `grid_sample`, differentiated by autograd.
+With the kernels on, the loss's photometric term of each scale (SSIM+L1
+of every warp, the noisy identity, the per-pixel minimum) is one forward
+and one backward kernel too on a card (`_photometric`,
+`ops.cuda.photometric`), except on a spatial mesh's row pieces, which
+keep the plain composition, as the CPU does.
 Under --remat each warp (whichever sampler) is checkpointed as in JAX:
 its backward recomputes the forward, so `WarpSample` launches K1 twice.
 Each step sets the model's mode itself: `.train()` for the train step
@@ -89,6 +94,7 @@ from monodepth_tpu_torch.losses.metrics import training_depth_metric
 from monodepth_tpu_torch.losses.reprojection import monodepth_loss, tie_noise
 from monodepth_tpu_torch.models.monodepth import Monodepth
 from monodepth_tpu_torch.models.resnet import BatchNorm2d, sync_batch_stats
+from monodepth_tpu_torch.ops.cuda import photometric
 from monodepth_tpu_torch.ops.cuda.build import build_libraries
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
     SLAB,
@@ -171,7 +177,8 @@ def _synthesize(model: Monodepth, batch: Dict[str, Tensor], cfg: Config, color: 
     f32 = torch.promote_types(torch.float32, color.dtype)
     H, W = cfg.height, cfg.width
     source_ids = list(cfg.source_frame_ids)
-    target = color[:, 0].to(f32)
+    # contiguous, as the photometric kernels take it
+    target = color[:, 0].to(f32).contiguous()
 
     # contiguous once: each feeds a warp per scale
     sources = [color[:, cfg.frame_ids.index(fid)].to(f32).contiguous()
@@ -419,9 +426,22 @@ def _rank_noise(noise, batch: Mapping[str, Tensor], cfg: Config, mesh: Mesh | No
 
 def _build_kernels(cfg: Config, device: torch.device) -> None:
     """On a card, build the step's CUDA libraries ahead, all at once: the
-    phase marks and, with the kernels on, the warp's."""
+    phase marks and, with the kernels on, the warp's and the photometric
+    term's."""
     if device.type == "cuda":
-        build_libraries(["phase_mark"] + (["warp_sample"] if cfg.use_pallas else []))
+        build_libraries(["phase_mark"]
+                        + (["warp_sample", "photometric"] if cfg.use_pallas else []))
+
+
+def _photometric(cfg: Config, mesh: Mesh | None, device: torch.device):
+    """The loss's photometric term (`monodepth_loss(photometric=...)`): the
+    kernels of `ops.cuda.photometric` wherever the warp kernels are on a
+    card, except on a spatial mesh's row pieces, whose SSIM windows read
+    halo rows exchanged with the neighbour ranks; elsewhere the plain
+    composition (None)."""
+    if cfg.use_pallas and device.type == "cuda" and (mesh is None or mesh.spatial == 1):
+        return photometric
+    return None
 
 
 def _step_device(device, mesh: Mesh | None) -> torch.device:
@@ -522,7 +542,8 @@ def _forward(model: Monodepth, batch: Dict[str, Tensor], noise, cfg: Config,
                 out["disps"], out["warped"], out["sources"], out["target_pyr"],
                 noise, scales=cfg.scales,
                 disp_smoothness=cfg.disp_smoothness,
-                use_automasking=cfg.use_automasking, choices=choices))
+                use_automasking=cfg.use_automasking, choices=choices,
+                photometric=_photometric(cfg, mesh, batch["frames"].device)))
     return out, loss, aux
 
 

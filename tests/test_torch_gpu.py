@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel (the warp sampler's, its
-backward K1-bwd, its shifted slab form K3, and the warp-gather probes')
+backward K1-bwd, its shifted slab form K3, the photometric term's forward
+and backward, and the warp-gather probes')
 against its plain PyTorch version, the launches of the eval and train
 steps (with --remat too), `prefetch_to_device`'s batches on the card,
 synced batch norm's own backward against autograd's, the phase marks in
@@ -22,6 +23,7 @@ from monodepth_tpu_torch.config import Config
 from monodepth_tpu_torch.data.dataset import KittiDataset
 from monodepth_tpu_torch.data.pipeline import Loader, prefetch_to_device
 from monodepth_tpu_torch.data.synthetic import DRIVE, make_kitti_tree, make_planar_scenes
+from monodepth_tpu_torch.ops.cuda import photometric as ph
 from monodepth_tpu_torch.ops.cuda import probes
 from monodepth_tpu_torch.ops.cuda.warp_sample import (
     WarpSample,
@@ -232,6 +234,187 @@ def test_warp_kernel_rejects_what_it_cannot_take(cuda):
             fn(img.transpose(1, 2).contiguous().transpose(1, 2), grid)
 
 
+# --- the photometric term: forward and backward kernels against plain --
+
+PHOTOMETRIC_SHAPES = [(2, 7, 9), (2, 64, 96), (2, 192, 640)]
+# the forward rounds as the plain ops do (csrc/photometric.cu) but for the
+# channel means' order of summation: a few ulps of errors under 1
+PHOTOMETRIC_VALUE_ATOL = 1e-6
+# the backward sums each pixel's 5x5 footprint of windows in another order
+# than autograd's chain of pooled-tensor backwards, and mean(x^2) - mu^2
+# cancels: relative to the gradient's largest entry
+PHOTOMETRIC_GRAD_RTOL = 1e-5
+
+
+def _photometric_images(shape, F, seed, dev, kind="plain"):
+    """warps, sources, target [B, H, W, 3] and noise [B, H, W, F] on the
+    card: warps near the target (errors of the identity's size), an exact
+    tie of two warps, the first warp equal to the target over a patch (SSIM
+    distance exactly 0, where the clip passes half the gradient), or a NaN
+    in the first warp."""
+    B, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    target = torch.rand(B, H, W, 3, generator=g, device=dev)
+    warps = [0.6 * torch.rand(B, H, W, 3, generator=g, device=dev) + 0.3 * target
+             for _ in range(F)]
+    sources = [torch.rand(B, H, W, 3, generator=g, device=dev) for _ in range(F)]
+    noise = 1e-5 * torch.randn(B, H, W, F, generator=g, device=dev)
+    if kind == "tie":
+        warps[1] = warps[0].clone()
+    elif kind == "ssim_tie":
+        warps[0][:, 4:12, 6:20] = target[:, 4:12, 6:20]
+    elif kind == "nan":
+        warps[0][0, H // 2, W // 2, 1] = float("nan")
+    return warps, sources, target, noise
+
+
+def _check_photometric(warps, sources, target, noise, automask):
+    """The kernel pair against the plain versions: the identity and the
+    minimum within PHOTOMETRIC_VALUE_ATOL, NaN where plain has NaN, the
+    mask equal wherever no channel lies within 2e-6 of the minimum without
+    equalling it, and each warp's gradient against the plain backward from
+    the kernel's mask within PHOTOMETRIC_GRAD_RTOL, NaN where it has NaN."""
+    before = _photometric_counts()
+    identity = ph.identity_errors(sources, target) if automask else None
+    leaves = [w.clone().requires_grad_(True) for w in warps]
+    minimum, mask = ph.photometric_min(leaves, target, identity, noise if automask else None)
+    dmin = torch.randn(minimum.shape, device=target.device,
+                       generator=torch.Generator(device=target.device).manual_seed(7))
+    minimum.backward(dmin)
+    torch.cuda.synchronize()
+    assert _photometric_counts() == (before[0] + int(automask), before[1] + 1, before[2] + 1)
+    assert minimum.dtype == torch.float32 and mask.dtype == torch.uint8
+
+    if automask:
+        plain_identity = torch.cat([ph.reprojection_error(s, target) for s in sources], -1)
+        assert float((identity - plain_identity).abs().max()) <= PHOTOMETRIC_VALUE_ATOL
+    plain_min, plain_mask = ph.photometric_min_reference(
+        warps, target, identity, noise if automask else None)
+    assert torch.equal(minimum.isnan(), plain_min.isnan())
+    assert float((minimum.detach() - plain_min).nan_to_num().abs().max()) \
+        <= PHOTOMETRIC_VALUE_ATOL
+    reproj = torch.cat([ph.reprojection_error(w, target) for w in warps], -1)
+    combined = reproj if not automask else torch.cat([identity + noise, reproj], -1)
+    gap = (combined - plain_min[..., None]).abs()
+    near = ((gap <= 2e-6) & (gap > 0)).any(-1)
+    assert bool(((mask == plain_mask) | near).all())
+    assert float(near.float().mean()) < 1e-3
+
+    for got, want in zip(leaves, ph.photometric_min_grads_reference(
+            warps, target, mask, dmin, automask)):
+        assert torch.equal(got.grad.isnan(), want.isnan())
+        scale = float(want.nan_to_num().abs().max())
+        err = float((got.grad - want).nan_to_num().abs().max()) / max(scale, 1e-30)
+        assert err <= PHOTOMETRIC_GRAD_RTOL, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("automask", [True, False])
+@pytest.mark.parametrize("F", [1, 2, 3])
+@pytest.mark.parametrize("shape", PHOTOMETRIC_SHAPES)
+def test_photometric_kernels_match_plain(cuda, shape, F, automask):
+    """identity_errors, photometric_min and its backward, one launch each,
+    against the plain versions at an odd shape, the eval shape and the
+    headline width, for mono, stereo and mono+stereo sources."""
+    _check_photometric(*_photometric_images(shape, F, sum(shape) + F, cuda), automask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["tie", "ssim_tie", "nan"])
+def test_photometric_kernels_keep_ties_and_nan(cuda, kind):
+    """Two equal warps tie exactly in the kernel too (both bits set, the
+    cotangent split in two); a warp equal to the target over a patch gives
+    errors exactly 0 inside it, as plain; a NaN pixel gives a NaN minimum
+    over its windows and NaN gradients over their footprint, where plain
+    has them."""
+    warps, sources, target, noise = _photometric_images((2, 24, 40), 2, 5, cuda, kind)
+    _check_photometric(warps, sources, target, noise, kind != "ssim_tie")
+    if kind == "ssim_tie":  # automasking off: the minimum is the errors' alone
+        minimum, _ = ph.photometric_min(warps, target, None, None)
+        plain, _ = ph.photometric_min_reference(warps, target, None, None)
+        assert torch.equal(minimum == 0, plain == 0) and int((minimum == 0).sum()) >= 2 * 6 * 12
+        return
+    identity = ph.identity_errors(sources, target)
+    minimum, mask = ph.photometric_min(warps, target, identity, noise)
+    if kind == "tie":
+        assert bool(((mask >> 2) & 3 == 3).any())
+    else:
+        assert int(minimum.isnan().sum()) == 9
+        assert bool((mask[minimum.isnan()] & ph.NAN_MIN).all())
+        assert torch.equal(ph.first_choice(mask)[minimum.isnan()],
+                           torch.full((9,), 2, device=cuda))
+
+
+@pytest.mark.gpu
+def test_photometric_backward_is_deterministic(cuda):
+    """Two backward launches on the same inputs give the same bits (a
+    gather, no atomics)."""
+    warps, sources, target, noise = _photometric_images((12, 192, 640), 2, 1, cuda)
+    identity = ph.identity_errors(sources, target)
+    _, mask = ph.photometric_min(warps, target, identity, noise)
+    dmin = torch.rand(mask.shape, device=cuda)
+    first = ph.photometric_min_grads(warps, target, mask, dmin, True)
+    second = ph.photometric_min_grads(warps, target, mask, dmin, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_photometric_stride0_cotangent_on_card(cuda):
+    """`minimum.sum().backward()`'s expanded cotangent, read as one float,
+    gives the gradients of an explicit `torch.ones`; a strided cotangent is
+    made contiguous."""
+    warps, sources, target, noise = _photometric_images((2, 16, 40), 2, 2, cuda)
+    identity = ph.identity_errors(sources, target)
+    grads = []
+    for how in ("sum", "ones", "strided"):
+        leaves = [w.clone().requires_grad_(True) for w in warps]
+        minimum, _ = ph.photometric_min(leaves, target, identity, noise)
+        if how == "sum":
+            minimum.sum().backward()
+        elif how == "ones":
+            minimum.backward(torch.ones_like(minimum))
+        else:
+            minimum.backward(torch.ones(2, 40, 16, device=cuda).transpose(1, 2))
+        grads.append([w.grad for w in leaves])
+    for g in grads[1:]:
+        for a, b in zip(grads[0], g):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_photometric_kernels_reject_what_they_cannot_take(cuda):
+    """Wrong dtype, device, shape or layout raise before any launch."""
+    t = torch.rand(1, 8, 16, 3, device=cuda)
+    ident = torch.rand(1, 8, 16, 1, device=cuda)
+    before = _photometric_counts()
+    with pytest.raises(TypeError):
+        ph.identity_errors([t.double()], t.double())
+    with pytest.raises(TypeError):
+        ph.photometric_min([t], t, ident, ident.double())
+    with pytest.raises(ValueError, match="an image on"):
+        ph.photometric_min([t.cpu()], t, None, None)
+    with pytest.raises(ValueError, match="tensors on"):
+        ph.photometric_min([t], t, ident.cpu(), ident.cpu())
+    with pytest.raises(ValueError, match=r"\[B, H, W, 3\]"):
+        ph.photometric_min([torch.rand(1, 8, 16, 4, device=cuda)],
+                           torch.rand(1, 8, 16, 4, device=cuda), None, None)
+    with pytest.raises(ValueError, match="identity and noise"):
+        ph.photometric_min([t], t, torch.rand(1, 8, 16, 2, device=cuda),
+                           torch.rand(1, 8, 16, 2, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ph.photometric_min([t.transpose(1, 2).contiguous().transpose(1, 2)], t, None, None)
+    with pytest.raises(ValueError, match="no gradient"):
+        ph.photometric_min([t], t.clone().requires_grad_(True), None, None)
+    mask = torch.zeros(1, 8, 16, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="uint8 mask"):
+        ph.photometric_min_grads([t], t, mask.float(), torch.ones(1, 8, 16, device=cuda), False)
+    with pytest.raises(ValueError, match="cotangent"):
+        ph.photometric_min_grads([t], t, mask, torch.ones(1, 8, 16, device=cuda).double(),
+                                 False)
+    assert _photometric_counts() == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_synced_norm_is_autograd_bit_for_bit_on_card(cuda, dtype):
@@ -269,9 +452,10 @@ def test_synced_norm_is_autograd_bit_for_bit_on_card(cuda, dtype):
 
 @pytest.mark.gpu
 def test_eval_step_on_card_matches_cpu(cuda):
-    """f32, small: the card's eval step (8 kernel launches) against the CPU
-    step (plain warp) on the same weights, batch and noise. TF32 is off
-    under f32, so only summation order separates the two."""
+    """f32, small: the card's eval step (8 warp kernel launches; the
+    photometric term's identity once and forward once a scale) against the
+    CPU step (plain warp and loss) on the same weights, batch and noise.
+    TF32 is off under f32, so only summation order separates the two."""
     cfg = Config(height=64, width=128, batch=2, precision="f32")
     scenes = make_planar_scenes(2, 64, 128, seed=0)
     batch = {k: scenes[k] for k in ("frames", "jitter", "K", "inv_K")}
@@ -282,10 +466,11 @@ def test_eval_step_on_card_matches_cpu(cuda):
     cpu = make_eval_step(model, cfg, device="cpu")(
         create_state(cfg, model), batch, noise=noise)
     model = model.to(cuda)
-    before = warp_sample.launches
+    before = warp_sample.launches, _photometric_counts()
     card = make_eval_step(model, cfg)(create_state(cfg, model), batch,
                                       noise=noise)
-    assert warp_sample.launches == before + 8
+    assert warp_sample.launches == before[0] + 8
+    assert _photometric_counts() == tuple(a + b for a, b in zip(before[1], (1, 4, 0)))
     np.testing.assert_allclose(float(card["loss"]), float(cpu["loss"]), rtol=1e-4)
     assert float(card["warp_span"]) == pytest.approx(float(cpu["warp_span"]),
                                                      abs=0.125)
@@ -294,8 +479,10 @@ def test_eval_step_on_card_matches_cpu(cuda):
 @pytest.mark.gpu
 def test_train_step_launches_k1_eight_times(cuda):
     """f32, small: one train step on the card launches K1 and K1-bwd once
-    per warp (2 sources x 4 scales) and K2 never, and its loss agrees with the CPU
-    step's (plain warp) from the same weights, batch and noise."""
+    per warp (2 sources x 4 scales) and K2 never, the photometric term's
+    identity once and its forward and backward once a scale, and its loss
+    agrees with the CPU step's (plain warp and loss) from the same weights,
+    batch and noise."""
     cfg = Config(height=64, width=128, batch=2, precision="f32")
     scenes = make_planar_scenes(2, 64, 128, seed=0)
     batch = {k: scenes[k] for k in ("frames", "jitter", "K", "inv_K")}
@@ -309,11 +496,13 @@ def test_train_step_launches_k1_eight_times(cuda):
     model = build_model(cfg)
     model.load_state_dict(sd)
     before = (warp_sample.launches, warp_sample_grads.launches, grid_vjp.launches)
+    photometric_before = _photometric_counts()
     card = make_train_step(model, cfg)(create_state(cfg, model, steps_per_epoch=10),
                                        batch, noise=noise)
     torch.cuda.synchronize()
     assert (warp_sample.launches, warp_sample_grads.launches, grid_vjp.launches) == \
         (before[0], before[1] + 8, before[2] + 8)
+    assert _photometric_counts() == tuple(a + b for a, b in zip(photometric_before, (1, 4, 4)))
     np.testing.assert_allclose(float(card["loss"]), float(cpu["loss"]), rtol=1e-4)
 
 
@@ -741,6 +930,11 @@ def _counts():
     return (warp_sample.launches, warp_sample_grads.launches, grid_vjp.launches)
 
 
+def _photometric_counts():
+    return (ph.identity_errors.launches, ph.photometric_min.launches,
+            ph.photometric_min_grads.launches)
+
+
 def _assert_train_states_equal(a, b):
     for (name, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
         assert torch.equal(x, y), name
@@ -757,7 +951,8 @@ def test_captured_train_steps_equal_eager(deterministic, k):
     """3 calls of the captured step (warm-up, capture and replay, replay)
     against the eager step from a deep copy: the state (parameters,
     buffers, Adam) and the metrics equal, 8 K1 and 8 K1-bwd launches a
-    step counted on both, Adam's device step equal to `state.step`; K=2:
+    step counted on both, and the photometric term's 1 identity, 4 forward
+    and 4 backward launches, Adam's device step equal to `state.step`; K=2:
     `make_train_multi_step`, 2 steps a call."""
     import copy
 
@@ -777,12 +972,14 @@ def test_captured_train_steps_equal_eager(deterministic, k):
         calls = [batches[i:i + k] for i in range(0, len(batches), k)]
     counts = []
     for fn, s in ((graphed, state), (eager, twin)):
-        before = _counts()
+        before = _counts() + _photometric_counts()
         metrics = [fn(s, c) for c in calls]
         torch.cuda.synchronize()
-        counts.append(tuple(a - b for a, b in zip(_counts(), before)))
+        counts.append(tuple(a - b for a, b in zip(_counts() + _photometric_counts(), before)))
         s.metrics = metrics
-    assert counts == [(0, 24 * k, 24 * k)] * 2
+    # a call: 8 K1 and 8 K1-bwd; the photometric identity once, its
+    # forward and backward once a scale (4), each step of a K-step call
+    assert counts == [(0, 24 * k, 24 * k, 3 * k, 12 * k, 12 * k)] * 2
     _assert_train_states_equal(state, twin)
     for a, b in zip(state.metrics, twin.metrics):
         for key in a:

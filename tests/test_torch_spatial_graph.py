@@ -34,6 +34,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from monodepth_tpu.config import Config as JConfig
 from monodepth_tpu.parallel import make_mesh as jmake_mesh
 from monodepth_tpu.training.step import _spatial_pallas_sampler
+from monodepth_tpu_torch.ops.cuda import photometric as ph
 from monodepth_tpu_torch.ops.cuda import warp_sample as ws
 from monodepth_tpu_torch.training.graphs import COUNTED
 from monodepth_tpu_torch.training.phases import mark
@@ -148,11 +149,12 @@ def test_k3_on_the_gathered_rows_is_the_whole_warp():
 
 def test_replays_advance_the_spatial_counters():
     """A graph replay advances every counter a capture can move: the
-    kernel wrappers' launches, the phase marks' and the spatial warps'
-    calls, each once."""
+    kernel wrappers' launches (the warp's and the photometric term's), the
+    phase marks' and the spatial warps' calls, each once."""
     assert set(COUNTED) == {
         (ws.warp_sample, "launches"), (ws.warp_sample_grads, "launches"),
         (ws.warp_sample_shifted, "launches"), (ws.warp_sample_grads_shifted, "launches"),
-        (ws.grid_vjp, "launches"), (mark, "launches"), (local_warp, "calls"),
-        (spatial_fallback, "calls")}
+        (ws.grid_vjp, "launches"), (ph.identity_errors, "launches"),
+        (ph.photometric_min, "launches"), (ph.photometric_min_grads, "launches"),
+        (mark, "launches"), (local_warp, "calls"), (spatial_fallback, "calls")}
     assert len(COUNTED) == len(set(COUNTED))
