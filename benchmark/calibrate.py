@@ -7,13 +7,14 @@ For each seed it builds the cell's set-up as a run does and reads each
 number of the check for
 - the program (its first three steps) against the reference: the lower
   reading is the largest over the seeds;
-- the reference at the program's stated precision (`PROGRAM_PRECISION`),
-  and which leaf reads worst there and in the program, and the first
-  gradient's median gap in each network: how far that rounding alone
-  moves each number, and where;
-- the control, the reference in the precision below the configuration's
-  (`reference.CONTROL`), and each half of it (fp8 convolutions alone, a
-  bf16 loss stack alone);
+- the reference at the program's stated precision (its family
+  reference's `PROGRAM_PRECISION`), and which leaf reads worst there and
+  in the program, and the first gradient's median gap in each of the
+  family's `NETWORKS`: how far that rounding alone moves each number,
+  and where;
+- the control, the reference in the precision below the configuration's,
+  and each part of it (the reference's `CONTROLS`; Monodepth2's: fp8
+  convolutions alone, a bf16 loss stack alone);
 - the faults a run can have, planted in the reference: half of each
   batch left out (the mean over the rest); on several cards, rank 0's
   items alone (the exchange left out); and two that break the replays
@@ -40,26 +41,21 @@ if str(ROOT) not in sys.path:
 
 import torch  # noqa: E402
 
-from benchmark import check, reference, train  # noqa: E402
+from benchmark import check, train  # noqa: E402
 from benchmark.manifest import cell as load_cell  # noqa: E402
 
-VARIANTS = {"control": reference.CONTROL,
-            "fp8_convs": reference.Numerics(fp8=True),
-            "bf16_stack": reference.Numerics(stack=torch.bfloat16)}
 
-
-def _steps(t: reference.Trajectory) -> check.Steps:
+def _steps(t) -> check.Steps:
+    """A reference `Trajectory` as the check reads the program's steps."""
     return check.Steps(t.losses, t.grad1, t.grad2, t.params, t.stats, t.disp1, t.params1)
 
 
-NETWORKS = ("encoder.", "decoder.", "pose_encoder.", "pose_decoder.")
-
-
-def network_medians(grad1, ref) -> dict:
-    """The first gradient's median leaf gap within each network."""
+def network_medians(networks, grad1, ref) -> dict:
+    """The first gradient's median leaf gap within each network (by its
+    state_dict prefix)."""
     gaps = check.leaf_gaps(grad1, {k: v.cpu() for k, v in ref.grad1.items()})
     return {n[:-1]: statistics.median(v for k, v in gaps.items() if k.startswith(n))
-            for n in NETWORKS}
+            for n in networks}
 
 
 def train_seed(cell, seed: int, device, faults: bool) -> dict:
@@ -72,7 +68,8 @@ def train_seed(cell, seed: int, device, faults: bool) -> dict:
         first = train.first_steps(s)
         s.step = s.state = None
         train.free(device)
-    reference.exact_matmuls()
+    reference = s.family.reference
+    train.exact_matmuls()
     ref = train.reference_steps(s, reference.F32, device)
     numbers = lambda steps, leaves=None: check.train_numbers(  # noqa: E731
         steps, ref, s.state_dict, train.reference_replay(s, steps.params1, device), leaves)
@@ -85,11 +82,13 @@ def train_seed(cell, seed: int, device, faults: bool) -> dict:
         same = train.reference_steps(s, reference.PROGRAM_PRECISION, device)
         out["program_precision"] = numbers(_steps(same), worst["program_precision"])
         out["worst_leaves"] = worst
-        out["grad1_network_medians"] = {"program": network_medians(first.grad1, ref),
-                                        "program_precision": network_medians(same.grad1, ref)}
+        networks = s.family.NETWORKS
+        out["grad1_network_medians"] = {
+            "program": network_medians(networks, first.grad1, ref),
+            "program_precision": network_medians(networks, same.grad1, ref)}
     if not faults:
         return out
-    for name, numerics in VARIANTS.items():
+    for name, numerics in reference.CONTROLS.items():
         out[name] = numbers(_steps(train.reference_steps(s, numerics, device)))
     B = s.batches[0]["frames"].shape[0]
     plant = {"half_batch": dict(items=slice(0, B // 2)),
@@ -97,7 +96,7 @@ def train_seed(cell, seed: int, device, faults: bool) -> dict:
              "replays_unchanged": dict(rates=[s.conf["learning_rate"]]
                                        + [0.0] * (train.WARM_STEPS - 1))}
     if cell.chips > 1:
-        plant["one_rank"] = dict(items=slice(0, s.cfg.batch))
+        plant["one_rank"] = dict(items=slice(0, s.conf["batch"]))
     for name, how in plant.items():
         out[name] = numbers(_steps(train.reference_steps(s, reference.F32, device, **how)))
     return out

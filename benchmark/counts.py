@@ -86,10 +86,16 @@ def depth_forward_flops(cfg: dict, batch: int) -> int:
                     + flops(depth_decoder_convs(cfg["num_layers"], cfg["scales"], H, W)))
 
 
+def _pose_sources(cfg: dict) -> int:
+    """The source frames the pose network sees: the stereo frame's
+    transform comes with the batch."""
+    return len([f for f in cfg["frame_ids"][1:] if f != "s"])
+
+
 def pose_forward_flops(cfg: dict, batch: int) -> int:
-    """The `separate` pose network's forward, one pass a source frame."""
+    """The `separate` pose network's forward, one pass a temporal source."""
     H, W = cfg["height"], cfg["width"]
-    sources = len(cfg["frame_ids"]) - 1
+    sources = _pose_sources(cfg)
     return batch * sources * (flops(resnet_convs(cfg["num_layers"], 6, H, W))
                               + flops(pose_decoder_convs(cfg["num_layers"], H, W)))
 
@@ -97,7 +103,7 @@ def pose_forward_flops(cfg: dict, batch: int) -> int:
 def train_step_flops(cfg: dict, batch: int) -> int:
     """A train step's forward and backward products of both networks."""
     H, W = cfg["height"], cfg["width"]
-    sources = len(cfg["frame_ids"]) - 1
+    sources = _pose_sources(cfg)
     stems = batch * (flops(resnet_convs(cfg["num_layers"], 3, H, W)[:1])
                      + sources * flops(resnet_convs(cfg["num_layers"], 6, H, W)[:1]))
     return 3 * (depth_forward_flops(cfg, batch) + pose_forward_flops(cfg, batch)) - stems

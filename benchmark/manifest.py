@@ -1,32 +1,39 @@
 """What a cell is, read from `BENCHMARK.json` and the files it names.
 
-A cell names a configuration (`configs/<name>.json`: the port's `Config`
-fields as run, with `source`, `reduced` and `assumed`) and a traffic mix
-(`traffic/<name>.json`: the parameters its `kind` of driver reads). Its
-per-layer metrics are the manifest's entries whose `workloads` list it,
-each read by `metrics/<metric name>.py`. The limits of its correctness
-check are `limits/<cell name>.json`.
+A cell names a configuration (`configs/<name>.json`: its model family's
+fields as run, with the notes `source`, `reduced`, `assumed` and
+`family`, which names `families/<family>.py`, `monodepth2` where it is
+left out) and a traffic mix (`traffic/<name>.json`: the parameters that
+the driver `<kind>.py` of its `kind` reads). Its per-layer metrics are
+the manifest's entries whose `workloads` list it, each read by
+`metrics/<metric name>.py`. The limits of its correctness check are
+`limits/<cell name>.json`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
+
+from benchmark import families
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 
-# the configuration file's keys that are not `Config` fields
-CONFIG_NOTES = ("source", "reduced", "assumed")
+# the configuration file's keys that are not the family's fields
+CONFIG_NOTES = ("source", "reduced", "assumed", "family")
 
 
 @dataclasses.dataclass
 class Cell:
     name: str
     chips: int
+    family: str              # the configuration's model family
     config: dict             # the configuration file's fields, notes left out
     traffic: dict
     end_to_end: List[str]
@@ -51,7 +58,7 @@ def cell(name: str, root: Path = ROOT) -> Cell:
     w = work[name]
     config = json.loads((HERE / "configs" / f"{w['config']}.json").read_text())
     return Cell(
-        name=name, chips=w["chips"],
+        name=name, chips=w["chips"], family=config.get("family", families.DEFAULT),
         config={k: v for k, v in config.items() if k not in CONFIG_NOTES},
         traffic=json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text()),
         end_to_end=[m["name"] for m in spec["end_to_end"] if _applies(m, name)],
@@ -69,9 +76,13 @@ def reader(metric: str) -> Callable:
     return module.read
 
 
-def port_config(config: dict):
-    """The port's `Config` of a configuration's fields."""
-    from monodepth_tpu_torch.config import Config
-
-    fields = {k: tuple(v) if isinstance(v, list) else v for k, v in config.items()}
-    return Config(**fields).validate()
+def driver(kind: str) -> ModuleType:
+    """The driver of a traffic `kind`: the module `<kind>.py` beside this
+    one, which defines `run`."""
+    path = HERE / f"{kind}.py"
+    module = None
+    if kind.isidentifier() and path.is_file():
+        module = importlib.import_module(f"{__package__}.{kind}")
+    if not callable(getattr(module, "run", None)):
+        raise ValueError(f"traffic kind {kind!r}: no driver file {path} defining run")
+    return module

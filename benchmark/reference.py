@@ -57,14 +57,12 @@ class Numerics:
 
 
 F32 = Numerics()
+F64 = Numerics(stack=torch.float64)
 CONTROL = Numerics(stack=torch.bfloat16, fp8=True)
 PROGRAM_PRECISION = Numerics(net=torch.bfloat16)
-
-
-def exact_matmuls() -> None:
-    """TF32 off: float32 products in float32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+# the control, then each half of it
+CONTROLS = {"control": CONTROL, "fp8_convs": Numerics(fp8=True),
+            "bf16_stack": Numerics(stack=torch.bfloat16)}
 
 
 class _Fp8(torch.autograd.Function):
@@ -406,9 +404,11 @@ def smooth_loss(disp: Tensor, img: Tensor) -> Tensor:
 def train_loss(model: Monodepth2, cfg: dict, batch: Dict[str, Tensor],
                noise: Dict[int, Tensor], keep: dict | None = None) -> Tensor:
     """Monodepth2's loss on one batch: frames uint8 [B, F, H, W, 3] in the
-    order `cfg["frame_ids"]`, jitter [B, 5], K and inv_K [B, 4, 4]; noise
-    {scale: [B, H, W, n_sources]}, the automask's tie-break noise. `keep`,
-    when given, gets the finest scale's disparity [B, 1, H, W] as "disp"."""
+    order `cfg["frame_ids"]`, jitter [B, 5], K and inv_K [B, 4, 4] and,
+    with the stereo frame "s", stereo_T [B, 4, 4], which warps it in place
+    of a pose network's transform; noise {scale: [B, H, W, n_sources]},
+    the automask's tie-break noise. `keep`, when given, gets the finest
+    scale's disparity [B, 1, H, W] as "disp"."""
     stack = model.numerics.stack
     frames = batch["frames"]
     B, nf, H, W, _ = frames.shape
@@ -421,7 +421,11 @@ def train_loss(model: Monodepth2, cfg: dict, batch: Dict[str, Tensor],
     if keep is not None:
         keep["disp"] = disps[min(cfg["scales"])].detach().clone()
     poses = {}
+    if "s" in ids:
+        poses["s"] = batch["stereo_T"].to(stack)
     for f in ids[1:]:
+        if f == "s":
+            continue
         pair = (f, 0) if f < 0 else (0, f)
         axisangle, translation = model.pose_decoder(
             model.pose_encoder(torch.cat([frame(aug, p) for p in pair], 1)))

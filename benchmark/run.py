@@ -29,7 +29,6 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "monodepth_tpu")
-DRIVERS = {"train": "benchmark.train"}
 
 
 def process_start() -> float:
@@ -88,13 +87,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float, **
     On several cards rank 0 runs here and the others in processes of their
     own. The CPU tests call this at a small size, with `fault=` breaking
     the step underneath."""
-    import importlib
-
     import torch
 
-    from benchmark import check, ranks
+    from benchmark import check, manifest, ranks
 
-    driver = importlib.import_module(DRIVERS[cell.traffic["kind"]])
+    driver = manifest.driver(cell.traffic["kind"])
     procs = ranks.spawn(cell.chips, driver.run, cell, seed, seconds, trace, device, t0,
                         **hooks) if cell.chips > 1 else []
     try:

@@ -11,8 +11,8 @@ import sys
 
 import pytest
 
-from benchmark import run
-from benchmark.manifest import CONFIG_NOTES, HERE, ROOT, cell, manifest
+from benchmark import families, run
+from benchmark.manifest import CONFIG_NOTES, HERE, ROOT, cell, driver, manifest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -88,24 +88,33 @@ def test_at_most_a_quarter_of_the_cells_take_four_chips():
 
 def test_every_entry_has_its_files():
     """A configuration, traffic mix, cell or per-layer metric is files
-    found by its name: adding one edits no file that is there."""
-    from monodepth_tpu_torch.config import Config
-
-    fields = set(Config.__dataclass_fields__)
+    found by its name: adding one edits no file that is there. A
+    configuration's fields are its family's, and a traffic mix's `kind`
+    names a driver file that defines `run`."""
     for c in SPEC["configs"]:
         path = ROOT / c["file"]
         assert path == HERE / "configs" / f"{c['name']}.json"
         conf = json.loads(path.read_text())
-        assert set(conf) - set(CONFIG_NOTES) <= fields
-        assert set(c["reduced"]) == set(conf["reduced"]) <= fields
+        family = families.load(conf.get("family", families.DEFAULT))
+        family.config({k: v for k, v in conf.items() if k not in CONFIG_NOTES})
+        assert set(c["reduced"]) == set(conf["reduced"]) <= set(conf) - set(CONFIG_NOTES)
         assert len(conf["source"]) <= 200
     for w in SPEC["workloads"]:
         assert (HERE / "traffic" / f"{w['traffic']}.json").is_file()
         assert (HERE / "limits" / f"{w['name']}.json").is_file()
-        assert json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())["kind"] \
-            in run.DRIVERS
+        kind = json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text())["kind"]
+        assert (HERE / f"{kind}.py").is_file() and callable(driver(kind).run)
     for m in SPEC["per_layer"]:
         assert (HERE / "metrics" / f"{m['name']}.py").is_file()
+
+
+@pytest.mark.parametrize("name,what", [("nothing_such", "driver"), ("check", "driver"),
+                                       ("nothing_such", "family"), ("../run", "family")])
+def test_an_unknown_kind_or_family_names_the_file_it_looked_for(name, what):
+    look = driver if what == "driver" else families.load
+    folder = HERE if what == "driver" else HERE / "families"
+    with pytest.raises(ValueError, match=re.escape(str(folder / f"{name}.py"))):
+        look(name)
 
 
 def test_a_rank_that_loaded_jax_fails(monkeypatch):
@@ -135,8 +144,15 @@ def test_forbidden_modules_compare_top_level_names_whole(monkeypatch):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for name in ("reference", "scenes", "weights", "counts", "check"):
-        tree = ast.parse((HERE / f"{name}.py").read_text())
+    """Nor does any family's reference, nor the harness's inputs and
+    checks."""
+    paths = {HERE / f"{name}.py" for name in ("reference", "scenes", "weights", "counts",
+                                              "check")}
+    for c in SPEC["configs"]:
+        conf = json.loads((ROOT / c["file"]).read_text())
+        paths.add(families.load(conf.get("family", families.DEFAULT)).reference.__file__)
+    for path in paths:
+        tree = ast.parse(open(path).read())
         imported = {a.name.split(".")[0] for node in ast.walk(tree)
                     if isinstance(node, ast.Import) for a in node.names}
         imported |= {node.module.split(".")[0] for node in ast.walk(tree)

@@ -1,63 +1,43 @@
-"""The plain reference against the port's CPU path, in float64 at 64x96
-and batch 2, for both configurations: two train steps' losses, the first
-step's gradients and finest disparity, the parameters after Adam's second
-update and the batch-norm running statistics. Both sides load one seeded
-state_dict and take the same batches and noise."""
-
-import dataclasses
+"""The plain reference against the port's CPU path, both reached through
+the configuration's family, in float64 at 64x96 and batch 2, for every
+one-card cell of `BENCHMARK.json` and for its first configuration with
+the stereo frame "s": two train steps' losses, the first step's gradients
+and finest disparity, the parameters after Adam's second update and the
+batch-norm running statistics. Both sides load one seeded state_dict and
+take the same batches and noise."""
 
 import pytest
 import torch
 
-from benchmark import reference, scenes, weights
-from benchmark.manifest import cell, port_config
+from benchmark import families, scenes, weights
+from benchmark.manifest import cell, manifest
 
-F64 = reference.Numerics(stack=torch.float64)
-
-
-def _config(name):
-    return dict(cell(name).config, height=64, width=96, batch=2, precision="f32")
+ONE_CARD = [w["name"] for w in manifest()["workloads"] if w["chips"] == 1]
+CASES = [(name, {}) for name in ONE_CARD] + [(ONE_CARD[0], {"frame_ids": [0, -1, 1, "s"]})]
 
 
-def _port(conf, state_dict):
-    from monodepth_tpu_torch.models.monodepth import Monodepth
-
-    model = Monodepth(num_layers=conf["num_layers"], scales=tuple(conf["scales"]))
-    model.load_state_dict(state_dict)
-    return model.double()
-
-
-def _inputs(conf, seed, steps):
-    g = scenes.generator(seed, 1, "cpu")
-    H, W, B = conf["height"], conf["width"], conf["batch"]
-    ring = scenes.planar_scenes(g, steps * B, H, W, 14.0, 4, "cpu")
-    f64 = lambda v: v.double() if v.dtype.is_floating_point else v  # noqa: E731
-    batches = [{k: f64(v[i * B:(i + 1) * B]) for k, v in ring.items()} for i in range(steps)]
-    noises = [{s: v.double() for s, v in scenes.tie_noise(g, B, H, W, 2, conf["scales"],
-                                                          "cpu").items()}
-              for _ in range(steps)]
-    return batches, noises
+def _f64(d):
+    return {k: v.double() if v.dtype.is_floating_point else v for k, v in d.items()}
 
 
 def _rel(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-300))
 
 
-@pytest.mark.parametrize("name", ["r18_mono_640x192.train", "r50_mono_640x192.train"])
-def test_train_steps_match_the_port(name, few_threads):
-    from monodepth_tpu_torch.training.state import create_state
-    from monodepth_tpu_torch.training.step import make_train_step
+@pytest.mark.parametrize("name,change", CASES,
+                         ids=[n + ("_stereo" if c else "") for n, c in CASES])
+def test_train_steps_match_the_port(name, change, few_threads):
+    c = cell(name)
+    family = families.load(c.family)
+    conf = dict(c.config, height=64, width=96, batch=2, precision="f32", **change)
+    sd = weights.seeded_state_dict(family, conf, scenes.generator(3, 0, "cpu"), "cpu")
+    batches, noises = family.inputs(conf, dict(c.traffic, ring=2), 3, 2, "cpu")
+    batches, noises = [_f64(b) for b in batches], [_f64(n) for n in noises]
 
-    conf = _config(name)
-    sd = weights.seeded_state_dict(conf, scenes.generator(3, 0, "cpu"), "cpu")
-    batches, noises = _inputs(conf, 3, 2)
-
-    model = _port(conf, sd)
-    cfg = dataclasses.replace(port_config(conf))
-    state = create_state(cfg, model, steps_per_epoch=1000)
-    step = make_train_step(model, cfg, device="cpu", graph=False)
+    state, step = family.port(conf, sd, "cpu", None, 1000)
+    model = state.model.double()
     disps = []
-    hook = model.decoder.register_forward_hook(
+    hook = family.disparity_module(model).register_forward_hook(
         lambda module, args, out: disps.append(out[0].detach().clone()))
     losses, grads = [], []
     for batch, noise in zip(batches, noises):
@@ -65,9 +45,10 @@ def test_train_steps_match_the_port(name, few_threads):
         grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
         hook.remove()
 
-    ref = reference.build(conf, F64)
+    ref = family.reference.build(conf, family.reference.F64)
     ref.load_state_dict(sd)
-    traj = reference.train_steps(ref.double(), conf, batches, noises, conf["learning_rate"])
+    traj = family.reference.train_steps(ref.double(), conf, batches, noises,
+                                        conf["learning_rate"])
 
     for ours, theirs in zip(losses, traj.losses):
         assert abs(ours - theirs) <= 1e-12 * abs(theirs)

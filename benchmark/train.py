@@ -1,8 +1,9 @@
 """The `train` traffic: a closed loop over the port's captured train step.
 
-Set-up builds one train step (`make_train_step(model, cfg)`, the step the
-Trainer calls, a CUDA graph on a card) with its model and Adam state from
-the seed, and a ring of distinct batches and tie-break noises on the
+Set-up builds one train step (the configuration's family's `port`: for
+Monodepth2 `make_train_step(model, cfg)`, the step the Trainer calls, a
+CUDA graph on a card) with its model and Adam state from the seed, and
+the family's ring of distinct batches and per-step noises on the
 device: the steady state of a run whose loader keeps the next batch on
 the card. Its first three calls, on the first three batches of the ring,
 are the warm-up, the capture and a replay; the state they leave is the
@@ -16,10 +17,11 @@ items of an n times larger global batch, and every rank runs the same
 number of steps: set-up times three more steps, and the ranks agree on the
 count that fills the window at the slowest rank's pace.
 
-The check follows those first three steps with the reference (f32, TF32
-off), from the same weights, global batches and noise, and takes the
-second step again from the weights the program held after its first, on
-rank 0 once the ranks have left the process group.
+The check follows those first three steps with the family's reference
+(f32, TF32 off), from the same weights, global batches and noise, and
+takes the second step again from the weights the program held after its
+first, on rank 0 once the ranks have left the process group. Everything
+that depends on the model comes from the family (`families/`).
 """
 
 from __future__ import annotations
@@ -27,17 +29,17 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from types import ModuleType
 from typing import Dict, List
 
 import torch
 
-from benchmark import check, counts, reference, scenes, weights
-from benchmark.manifest import Cell, port_config
+from benchmark import check, families, scenes, weights
+from benchmark.manifest import Cell
 
 Tensor = torch.Tensor
 WARM_STEPS = 3
 PACE_STEPS = 3
-BETA1 = reference.ADAM[0]
 
 
 def _host(tensors: Dict[str, Tensor]) -> Dict[str, Tensor]:
@@ -46,10 +48,16 @@ def _host(tensors: Dict[str, Tensor]) -> Dict[str, Tensor]:
     return {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in tensors.items()}
 
 
+def exact_matmuls() -> None:
+    """TF32 off: float32 products in float32, as the reference runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 @dataclasses.dataclass
 class Setup:
+    family: ModuleType                # the configuration's (`families/`)
     conf: dict                        # the configuration file's fields
-    cfg: object                       # the port's Config of them
     state_dict: Dict[str, Tensor]     # the seeded weights (on the host once made)
     batches: List[Dict[str, Tensor]]  # the global ring, on the device
     noises: List[Dict[int, Tensor]]   # the global batches' noise
@@ -64,43 +72,21 @@ def inputs(cell: Cell, seed: int, device, ranks: int = 1) -> Setup:
     conf, traffic = cell.config, cell.traffic
     if traffic["ring"] < WARM_STEPS:
         raise ValueError(f"a train ring holds at least {WARM_STEPS} batches")
-    cfg = port_config(conf)
-    B = cfg.batch * ranks
-    H, W = cfg.height, cfg.width
-    sd = weights.seeded_state_dict(conf, scenes.generator(seed, 0, device), device)
-    g = scenes.generator(seed, 1, device)
-    ring = scenes.planar_scenes(g, traffic["ring"] * B, H, W, traffic["max_shift_px"],
-                                traffic["texture_cell"], device)
-    batches = [{k: v[i * B:(i + 1) * B] for k, v in ring.items()}
-               for i in range(traffic["ring"])]
-    g = scenes.generator(seed, 2, device)
-    noises = [scenes.tie_noise(g, B, H, W, len(cfg.source_frame_ids), cfg.scales, device)
-              for _ in range(traffic["ring"])]
-    return Setup(conf, cfg, sd, batches, noises, batches)
+    family = families.load(cell.family)
+    sd = weights.seeded_state_dict(family, conf, scenes.generator(seed, 0, device), device)
+    batches, noises = family.inputs(conf, traffic, seed, conf["batch"] * ranks, device)
+    return Setup(family, conf, sd, batches, noises, batches)
 
 
 def make(cell: Cell, seed: int, device, mesh=None) -> Setup:
-    """`inputs` and the port's train step with its model and Adam state
+    """`inputs` and the program's train step with its model and Adam state
     (on `mesh`, this rank's, with its items of each batch)."""
-    from monodepth_tpu_torch.models.monodepth import Monodepth
-    from monodepth_tpu_torch.parallel.mesh import replicate, shard_batch
-    from monodepth_tpu_torch.training.state import create_state, set_precision
-    from monodepth_tpu_torch.training.step import make_train_step
-
     s = inputs(cell, seed, device, 1 if mesh is None else mesh.size)
-    cfg = s.cfg
     if mesh is not None:
+        from monodepth_tpu_torch.parallel.mesh import shard_batch
         s.pieces = [shard_batch(mesh, b) for b in s.batches]
-    set_precision(cfg)
-    with torch.device(device):
-        model = Monodepth(num_layers=cfg.num_layers, scales=cfg.scales,
-                          frame_ids=cfg.frame_ids, pose_type=cfg.pose_type,
-                          pose_frames=cfg.pose_frames, remat=cfg.remat)
-    model.load_state_dict(s.state_dict)
-    s.state = create_state(cfg, model, steps_per_epoch=cell.traffic["steps_per_epoch"])
-    if mesh is not None:
-        replicate(mesh, s.state)
-    s.step = make_train_step(model, cfg, device=device, mesh=mesh)
+    s.state, s.step = s.family.port(s.conf, s.state_dict, device, mesh,
+                                    cell.traffic["steps_per_epoch"])
     s.state_dict = {k: v.to("cpu", copy=True) for k, v in s.state_dict.items()}
     return s
 
@@ -108,11 +94,13 @@ def make(cell: Cell, seed: int, device, mesh=None) -> Setup:
 def first_steps(s: Setup) -> check.Steps:
     """The first WARM_STEPS calls, through the window's own call; what the
     check reads of them. The first call's finest disparity is read by a
-    hook on the depth decoder, removed before the second call captures."""
+    hook on the family's `disparity_module`, removed before the second
+    call captures."""
     model = s.state.model
-    finest = min(s.cfg.scales)
+    finest = min(s.conf["scales"])
+    beta1 = s.family.reference.ADAM[0]
     disp1 = []
-    hook = model.decoder.register_forward_hook(
+    hook = s.family.disparity_module(model).register_forward_hook(
         lambda module, args, out: disp1.append(out[finest].detach().float().clone()))
     losses, firsts = [], []
     for k in range(WARM_STEPS):
@@ -129,8 +117,8 @@ def first_steps(s: Setup) -> check.Steps:
     m1, m2 = firsts
     return check.Steps(
         losses=[float(v) for v in losses],
-        grad1={n: m / (1 - BETA1) for n, m in m1.items()},
-        grad2={n: (m2[n].double() - BETA1 * m.double()) / (1 - BETA1) for n, m in m1.items()},
+        grad1={n: m / (1 - beta1) for n, m in m1.items()},
+        grad2={n: (m2[n].double() - beta1 * m.double()) / (1 - beta1) for n, m in m1.items()},
         params=_host(dict(model.named_parameters())),
         stats=_host({n: b for n, b in model.named_buffers()
                      if n.endswith(("running_mean", "running_var"))}),
@@ -138,12 +126,13 @@ def first_steps(s: Setup) -> check.Steps:
         params1=params1)
 
 
-def reference_steps(s: Setup, numerics: reference.Numerics, device,
-                    items: slice = slice(None), ring=range(WARM_STEPS),
-                    rates=None) -> reference.Trajectory:
-    """The reference's first WARM_STEPS steps from the same weights on the
-    same global batches and noise: those of the ring's `ring`, on `items`
-    of each, at the configuration's rate or `rates`, one a step."""
+def reference_steps(s: Setup, numerics, device,
+                    items: slice = slice(None), ring=range(WARM_STEPS), rates=None):
+    """The reference's first WARM_STEPS steps (its `Trajectory`) in the
+    arithmetic `numerics`, from the same weights on the same global
+    batches and noise: those of the ring's `ring`, on `items` of each, at
+    the configuration's rate or `rates`, one a step."""
+    reference = s.family.reference
     model = reference.build(s.conf, numerics, device)
     model.load_state_dict({k: v.to(device) for k, v in s.state_dict.items()})
     cut = lambda d: {k: v[items] for k, v in d.items()}  # noqa: E731
@@ -152,12 +141,12 @@ def reference_steps(s: Setup, numerics: reference.Numerics, device,
         s.conf["learning_rate"] if rates is None else rates)
 
 
-def reference_replay(s: Setup, params1: Dict[str, Tensor], device,
-                     numerics: reference.Numerics = reference.F32):
-    """The reference's second step from `params1`, the weights after a
-    first step: (loss, {leaf: gradient}) on the ring's second global batch
-    and its noise."""
-    model = reference.build(s.conf, numerics, device)
+def reference_replay(s: Setup, params1: Dict[str, Tensor], device):
+    """The reference's second step (f32) from `params1`, the weights after
+    a first step: (loss, {leaf: gradient}) on the ring's second global
+    batch and its noise."""
+    reference = s.family.reference
+    model = reference.build(s.conf, reference.F32, device)
     weights = dict(s.state_dict, **params1)
     model.load_state_dict({k: v.to(device) for k, v in weights.items()})
     return reference.loss_and_grads(model, s.conf, s.batches[1], s.noises[1])
@@ -221,8 +210,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float,
     window_s = time.perf_counter() - start
     B = s.pieces[0]["frames"].shape[0]
     out = {"attempted": n, "window_s": window_s, "setup_s": setup_s,
-           "flops_per_call": counts.train_step_flops(cell.config, B),
-           "warp_bytes_per_call": counts.warp_train_bytes(cell.config, B)}
+           "flops_per_call": s.family.train_step_flops(s.conf, B),
+           "warp_bytes_per_call": s.family.warp_train_bytes(s.conf, B)}
     if trace:
         from benchmark.trace import capture
         out["trace"] = capture(call, cell.traffic["trace_calls"])
@@ -245,8 +234,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float,
     out["metrics"] = {"train_img_per_s": n * s.batches[0]["frames"].shape[0] / out["window_s"],
                       "setup_s": setup_s}
 
-    reference.exact_matmuls()
-    traj = reference_steps(s, reference.F32, device)
+    exact_matmuls()
+    traj = reference_steps(s, s.family.reference.F32, device)
     replay = reference_replay(s, first.params1, device)
     out["checks"] = check.train_numbers(first, traj, s.state_dict, replay)
     return out

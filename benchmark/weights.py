@@ -1,25 +1,27 @@
 """The seeded weights both sides load: made on the device from the run's
 seed, in one draw for all convolution weights, in float32.
 
-No ImageNet checkpoint is in the repository, so the encoders start from
-torchvision's ResNet init (He normal over fan-out) and the decoders from
-LeCun normal over fan-in (`reference.fan_init_std`); biases are zero and
-batch norm is the identity.
+No ImageNet checkpoint is in the repository, so each convolution weight
+starts from its family reference's `fan_init_std` (Monodepth2's: the
+encoders from torchvision's ResNet init, He normal over fan-out, the
+decoders from LeCun normal over fan-in); biases are zero and batch norm
+is the identity. The names and shapes are the family reference's model's.
 """
 
 from __future__ import annotations
 
 import math
+from types import ModuleType
 from typing import Dict
 
 import torch
 
-from benchmark import reference
-
 Tensor = torch.Tensor
 
 
-def seeded_state_dict(cfg: dict, g: torch.Generator, device) -> Dict[str, Tensor]:
+def seeded_state_dict(family: ModuleType, cfg: dict, g: torch.Generator,
+                      device) -> Dict[str, Tensor]:
+    reference = family.reference
     shapes = {k: tuple(v.shape) for k, v in
               reference.build(cfg, device="meta").state_dict().items()}
     convs = [k for k, s in shapes.items() if k.endswith("weight") and len(s) == 4]
